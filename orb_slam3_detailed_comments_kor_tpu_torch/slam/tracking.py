@@ -1,0 +1,312 @@
+"""Stereo tracking step: project-match-optimize, keyframe insertion.
+
+Port of ``TrackResult``, ``_project_landmarks``, ``track_frame``,
+``update_landmark_stats``, ``make_keyframe`` and ``full_frame_step`` from
+``orb_slam3_detailed_comments_kor_tpu/slam/tracking.py``.
+
+``full_frame_step`` is the main path: stereo ORB front-end, a three-stage
+project → match → motion-only BA, landmark stats and the motion model.
+Everything stays on the device with static shapes and ``torch.where``
+selection; the caller's only host read is ``n_inliers``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from orb_slam3_detailed_comments_kor_tpu_torch.models import camera as cam_mod
+from orb_slam3_detailed_comments_kor_tpu_torch.ops import matching
+from orb_slam3_detailed_comments_kor_tpu_torch.optim import ba
+from orb_slam3_detailed_comments_kor_tpu_torch.slam import frontend as fe
+from orb_slam3_detailed_comments_kor_tpu_torch.slam import map_state as msx
+from orb_slam3_detailed_comments_kor_tpu_torch.slam.frontend import Frame
+from orb_slam3_detailed_comments_kor_tpu_torch.utils import lie
+
+
+class TrackResult(NamedTuple):
+    R_cw: torch.Tensor
+    t_cw: torch.Tensor
+    lm_feat: torch.Tensor     # [L] matched feature idx per landmark (-1)
+    lm_inlier: torch.Tensor   # [L] bool, survived pose optimization
+    n_inliers: torch.Tensor   # scalar
+    n_visible: torch.Tensor   # scalar (landmarks in frustum)
+
+
+def _visibility(X, normal, min_d, max_d, valid, R_cw, t_cw, cam_params, w, h,
+                scale, n_levels, cam_model):
+    """Frustum + scale-band + viewing-angle test (Frame::isInFrustum)."""
+    pc = X @ R_cw.T + t_cw
+    uv = cam_mod.project(cam_params, pc, cam_model)
+    Ow = -R_cw.T @ t_cw
+    delta = X - Ow
+    dist = torch.linalg.vector_norm(delta, dim=-1)
+    viewcos = torch.sum(delta * normal, dim=-1) / torch.clamp(dist, min=1e-6)
+    visible = (
+        valid
+        & (pc[:, 2] > 0.05)
+        & (uv[:, 0] >= 0) & (uv[:, 0] < w)
+        & (uv[:, 1] >= 0) & (uv[:, 1] < h)
+        & (dist >= 0.8 * min_d)
+        & (dist <= 1.3 * max_d)
+        & (viewcos > 0.5)
+    )
+    return uv, msx.predict_level(dist, max_d, scale, n_levels), visible
+
+
+def _project_landmarks(ms, R_cw, t_cw, cam_params, w, h, scale, n_levels,
+                       cam_model="pinhole"):
+    """Visibility of the whole landmark block."""
+    return _visibility(
+        ms.lm_pos, ms.lm_normal, ms.lm_min_dist, ms.lm_max_dist, ms.lm_valid,
+        R_cw, t_cw, cam_params, w, h, scale, n_levels, cam_model,
+    )
+
+
+def track_frame(
+    ms: msx.MapState,
+    frame: Frame,
+    R_pred: torch.Tensor,
+    t_pred: torch.Tensor,
+    cam_params: torch.Tensor,
+    bf: float,
+    w: int,
+    h: int,
+    scale: float = 1.2,
+    n_levels: int = 8,
+    r_wide: float = 15.0,
+    r_narrow: float = 4.0,
+    track_cap: int = 4096,
+    prior=None,
+    cam_model: str = "pinhole",
+    far_dist: float = 0.0,
+) -> TrackResult:
+    """Three-stage project → match → optimize.
+
+    The visible landmarks are compacted into a static ``track_cap`` window
+    first (the reference's local map points), so the matcher and the LM
+    iterations run over [track_cap] rather than [L].
+    """
+    if prior is not None:
+        raise NotImplementedError("pose priors are not ported")
+    L = ms.L
+    V = track_cap
+    dev = ms.lm_pos.device
+    _, _, vis0 = _project_landmarks(
+        ms, R_pred, t_pred, cam_params, w, h, scale, n_levels, cam_model
+    )
+    if far_dist > 0.0:
+        # thFarPoints: drop landmarks beyond the configured depth
+        pc0 = ms.lm_pos @ R_pred.T + t_pred
+        vis0 = vis0 & (pc0[:, 2] <= far_dist)
+    # --- compact visible landmarks into V slots (masked static shape) ----
+    # invisible and overflowing landmarks all write to the parking slot V
+    local = torch.where(vis0, torch.cumsum(vis0, 0) - 1, V)
+    local = torch.clamp(local, max=V)
+    lm_ids = torch.arange(L, dtype=torch.int32, device=dev)
+    sel = msx.scatter_drop(torch.zeros((V,), dtype=torch.int32, device=dev), local, lm_ids)
+    used = msx.scatter_drop(torch.zeros((V,), dtype=torch.bool, device=dev), local, vis0)
+    sel_l = sel.to(torch.int64)
+    X_v = ms.lm_pos[sel_l]
+    desc_v = ms.lm_desc[sel_l]  # packed: the matcher kernel takes it as is
+    normal_v = ms.lm_normal[sel_l]
+    mind_v = ms.lm_min_dist[sel_l]
+    maxd_v = ms.lm_max_dist[sel_l]
+    inv_sigma2_feat = 1.0 / (scale ** (2.0 * frame.level.to(torch.float32)))
+
+    def stage(R, t, radius, max_dist, rounds, iters):
+        uv, lvl, vis = _visibility(
+            X_v, normal_v, mind_v, maxd_v, used, R, t, cam_params, w, h,
+            scale, n_levels, cam_model,
+        )
+        res = matching.search_by_projection(
+            uv, lvl, desc_v, vis,
+            frame.xy, frame.level, frame.desc_packed, frame.valid,
+            radius=radius, scale=scale, max_dist=max_dist,
+        )
+        res = matching.resolve_duplicate_targets(res, frame.n)
+        feat = torch.clamp(res.idx, min=0).to(torch.int64)
+        opt = ba.pose_optimization(
+            R, t, X_v, frame.xy[feat], frame.u_right[feat],
+            inv_sigma2_feat[feat], res.valid, cam_params, bf,
+            rounds=rounds, iters=iters, cam_model=cam_model,
+        )
+        return opt, res, vis
+
+    # wide stage: full 4x10 budget; narrow: 2x8; ultra-narrow re-match at
+    # the converged pose (2 px, strict descriptor gate), kept only when it
+    # retains the consensus (see the reference for the measurements)
+    opt1, _, _ = stage(R_pred, t_pred, r_wide, matching.TH_HIGH, 4, 10)
+    opt2, res2, vis2 = stage(opt1.R_cw, opt1.t_cw, r_narrow, matching.TH_HIGH, 2, 8)
+    opt3, res3, vis3 = stage(opt2.R_cw, opt2.t_cw, 2.0, 60, 1, 6)
+    use3 = (res3.valid & opt3.inlier).sum() >= 0.6 * (res2.valid & opt2.inlier).sum()
+    pick = lambda a, b: torch.where(use3, a, b)
+    opt2 = ba.PoseOptResult(*map(pick, opt3, opt2))
+    res2 = matching.MatchResult(*map(pick, res3, res2))
+    vis2 = pick(vis3, vis2)
+    inlier_v = res2.valid & opt2.inlier  # [V]
+    # --- scatter results back to the [L] landmark block ------------------
+    dst = torch.where(used, sel, L)  # unused slots park out of range
+    lm_feat = msx.scatter_drop(
+        torch.full((L,), -1, dtype=torch.int32, device=dev), dst,
+        torch.where(inlier_v, res2.idx, -1),
+    )
+    lm_inlier = msx.scatter_drop(torch.zeros((L,), dtype=torch.bool, device=dev), dst, inlier_v)
+    return TrackResult(
+        R_cw=opt2.R_cw,
+        t_cw=opt2.t_cw,
+        lm_feat=lm_feat,
+        lm_inlier=lm_inlier,
+        n_inliers=torch.sum(inlier_v),
+        n_visible=torch.sum(vis2),
+    )
+
+
+def full_frame_step(
+    ms: msx.MapState,
+    img_l: torch.Tensor,
+    img_r: torch.Tensor,
+    R_last: torch.Tensor,
+    t_last: torch.Tensor,
+    vel_R: torch.Tensor,
+    vel_t: torch.Tensor,
+    has_vel: torch.Tensor,
+    cam_params: torch.Tensor,
+    bf: float,
+    w: int,
+    h: int,
+    scale: float = 1.2,
+    n_levels: int = 8,
+    n_features: int = 1200,
+    cell: int = 32,
+    min_inliers: int = 10,
+    far_dist: float = 0.0,
+):
+    """The whole per-frame hot path: stereo ORB front-end + track +
+    landmark stats + motion-model update.
+
+    Returns (ms', frame, tr, R, t, vel_R, vel_t, ok); ``ok`` and the pose
+    fallback are resolved on the device.
+    """
+    frame = fe.process_stereo(
+        img_l, img_r, bf, n_features=n_features, n_levels=n_levels,
+        scale=scale, cell=cell,
+    )
+    R_pred0, t_pred0 = lie.se3_compose(vel_R, vel_t, R_last, t_last)
+    R_pred = torch.where(has_vel, R_pred0, R_last)
+    t_pred = torch.where(has_vel, t_pred0, t_last)
+    tr = track_frame(
+        ms, frame, R_pred, t_pred, cam_params, bf, w, h, scale, n_levels,
+        far_dist=far_dist,
+    )
+    ok = tr.n_inliers >= min_inliers
+    ms = update_landmark_stats(ms, tr)
+    # motion model: vel = T_new ∘ inv(T_last); frozen when tracking failed
+    Ri, ti = lie.se3_inverse(R_last, t_last)
+    vR_new, vt_new = lie.se3_compose(tr.R_cw, tr.t_cw, Ri, ti)
+    vel_R = torch.where(ok, vR_new, vel_R)
+    vel_t = torch.where(ok, vt_new, vel_t)
+    R_out = torch.where(ok, tr.R_cw, R_last)
+    t_out = torch.where(ok, tr.t_cw, t_last)
+    return ms, frame, tr, R_out, t_out, vel_R, vel_t, ok
+
+
+def update_landmark_stats(
+    ms: msx.MapState, tr: TrackResult, visible_mask=None
+) -> msx.MapState:
+    """found/visible counters (MapPoint::IncreaseFound/Visible)."""
+    found = ms.lm_found + tr.lm_inlier.to(torch.int32)
+    if visible_mask is None:
+        visible_mask = tr.lm_inlier
+    visible = ms.lm_visible + visible_mask.to(torch.int32)
+    return ms._replace(lm_found=found, lm_visible=visible)
+
+
+def make_keyframe(
+    ms: msx.MapState,
+    frame: Frame,
+    R_cw: torch.Tensor,
+    t_cw: torch.Tensor,
+    time,
+    kf_idx: int,
+    lm_feat: torch.Tensor,
+    cam_params: torch.Tensor,
+    depth_far: float,
+    scale: float = 1.2,
+    n_levels: int = 8,
+    cam_model: str = "pinhole",
+) -> msx.MapState:
+    """Insert a keyframe + spawn stereo landmarks for unmatched close
+    features. lm_feat [L] is the tracking association (feature idx or -1).
+
+    Unlike the reference's scatter at tracking.py:481-487, whose duplicate
+    writes to feature 0 leave its result to the scatter order, unmatched
+    landmarks write to a parking slot, so a landmark matched to feature 0
+    always keeps it.
+    """
+    N = frame.n
+    L = ms.L
+    dev = frame.xy.device
+    # invert landmark→feature into feature→landmark
+    tgt = torch.where(lm_feat >= 0, lm_feat, N)
+    lm_ids = torch.arange(L, dtype=torch.int32, device=dev)
+    feat_lm = msx.scatter_drop(torch.full((N,), -1, dtype=torch.int32, device=dev), tgt, lm_ids)
+
+    # ---- new landmarks from stereo depth --------------------------------
+    # close points always spawn; if fewer than 100 are close, spawn the 100
+    # nearest anyway (CreateNewKeyFrame's sorted-nearest fallback)
+    candidate = frame.valid & (frame.depth > 0.0) & (feat_lm < 0)
+    depth_sorted = torch.sort(torch.where(candidate, frame.depth, float("inf"))).values
+    depth_100 = depth_sorted[min(99, N - 1)]
+    eff_far = torch.clamp(depth_100 * 1.0001, min=depth_far)
+    want = candidate & (frame.depth < eff_far)
+    slots = msx.allocate_slots(~ms.lm_valid, want)
+    got = slots >= 0
+    sl = torch.where(got, slots, L)  # non-allocations park at L
+
+    rays = cam_mod.unproject(cam_params, frame.xy, cam_model)
+    pc = rays * frame.depth[:, None]
+    R_wc = R_cw.T
+    Ow = -R_wc @ t_cw
+    Xw = pc @ R_wc.T + Ow
+    delta = Xw - Ow
+    dist = torch.linalg.vector_norm(delta, dim=-1)
+    normal = delta / torch.clamp(dist[:, None], min=1e-6)
+    mind, maxd = msx.landmark_scale_band(dist, frame.level, scale, n_levels)
+
+    put = lambda arr, vals: msx.scatter_drop(arr, sl, vals)
+    ones = torch.ones((N,), dtype=torch.int32, device=dev)
+    ms = ms._replace(
+        lm_pos=put(ms.lm_pos, Xw),
+        lm_valid=put(ms.lm_valid, True),
+        lm_desc=put(ms.lm_desc, frame.desc_packed),
+        lm_normal=put(ms.lm_normal, normal),
+        lm_min_dist=put(ms.lm_min_dist, mind),
+        lm_max_dist=put(ms.lm_max_dist, maxd),
+        lm_found=put(ms.lm_found, ones),
+        lm_visible=put(ms.lm_visible, ones),
+        lm_first_kf=put(ms.lm_first_kf, torch.full((N,), kf_idx, dtype=torch.int32, device=dev)),
+    )
+    feat_lm = torch.where(got, slots, feat_lm)
+
+    # ---- write the keyframe slot ----------------------------------------
+    def row(arr, val):
+        arr = arr.clone()
+        arr[kf_idx] = val
+        return arr
+
+    return ms._replace(
+        kf_R_cw=row(ms.kf_R_cw, R_cw),
+        kf_t_cw=row(ms.kf_t_cw, t_cw),
+        kf_valid=row(ms.kf_valid, True),
+        kf_time=row(ms.kf_time, time),
+        kf_xy=row(ms.kf_xy, frame.xy),
+        kf_level=row(ms.kf_level, frame.level),
+        kf_angle=row(ms.kf_angle, frame.angle),
+        kf_desc=row(ms.kf_desc, frame.desc_packed),
+        kf_ur=row(ms.kf_ur, frame.u_right),
+        kf_uvr=row(ms.kf_uvr, -1.0),
+        kf_feat_valid=row(ms.kf_feat_valid, frame.valid),
+        obs_lm=row(ms.obs_lm, feat_lm),
+    )
