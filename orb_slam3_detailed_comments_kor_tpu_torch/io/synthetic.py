@@ -75,9 +75,10 @@ class Scene(NamedTuple):
     offsets: torch.Tensor  # [P,2] texture offset so planes look different
 
 
-def default_scene(device=None) -> Scene:
+def default_scene(device="cuda") -> Scene:
     """Closed box room: walls z=5/z=-4, floor y=+1.5, ceiling y=-1.5,
-    side walls x=+4/-2.5 — every heading sees texture."""
+    side walls x=+4/-2.5 — every heading sees texture. On ``device``, the
+    card unless the caller names another."""
     t = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
     return Scene(
         normals=t([[0.0, 0.0, 1.0], [0.0, 0.0, -1.0], [0.0, 1.0, 0.0],

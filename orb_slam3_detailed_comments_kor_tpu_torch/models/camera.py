@@ -41,8 +41,9 @@ def unproject(params, uv, model: str = "pinhole"):
     return pinhole_unproject(params, uv)
 
 
-def camera_params_from_config(cam, device=None) -> torch.Tensor:
-    """[fx, fy, cx, cy] float32 from a pinhole CameraConfig."""
+def camera_params_from_config(cam, device="cuda") -> torch.Tensor:
+    """[fx, fy, cx, cy] float32 from a pinhole CameraConfig, on ``device``
+    (the card unless the caller names another)."""
     if cam.model != "pinhole":
         raise NotImplementedError(f"camera model {cam.model!r} is not ported")
     return torch.tensor(

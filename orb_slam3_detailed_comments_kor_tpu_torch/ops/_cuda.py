@@ -1,10 +1,12 @@
 """Build and load the package's CUDA kernels (``csrc/*.cu``).
 
 All kernels go into one shared library with a plain C interface, compiled
-by ``nvcc`` for ``sm_90a`` at first use and loaded with ``ctypes``. The
-library's file name carries a hash of the sources and flags, so an edited
-kernel is rebuilt and an unchanged one is loaded from ``_build/``. Nothing
-here runs at import time: the CPU path never needs nvcc.
+by ``nvcc`` for ``sm_90a`` at first use and loaded with ``ctypes``. Each
+source compiles in its own ``nvcc`` process, all started together, and one
+more links them. The library's file name carries a hash of the sources and
+flags, so an edited kernel is rebuilt and an unchanged one is loaded from
+``_build/``. Nothing here runs at import time: the CPU path never needs
+nvcc.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -71,19 +73,38 @@ def library() -> ctypes.CDLL:
     so = os.path.join(BUILD_DIR, f"libosk_kernels_{h.hexdigest()[:16]}.so")
     if not os.path.exists(so):
         os.makedirs(BUILD_DIR, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *srcs]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        with open(build_log_path(), "w") as f:
-            f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}"
-            )
-        os.replace(tmp, so)  # atomic: concurrent builders never see half a file
-    lib = ctypes.CDLL(so)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            nvcc = _nvcc()
+            compiles = []
+            for src in srcs:
+                obj = os.path.join(tmp, os.path.basename(src) + ".o")
+                cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", "-o", obj, src]
+                compiles.append((cmd, obj, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+            log, failed = [], []
+            for cmd, _, proc in compiles:
+                out = proc.communicate()[0]
+                log.append(" ".join(cmd) + "\n" + out)
+                if proc.returncode != 0:
+                    failed.append(out)
+            lib_tmp = os.path.join(tmp, "lib.so")
+            if not failed:
+                cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib_tmp,
+                       *(obj for _, obj, _ in compiles)]
+                proc = subprocess.run(cmd, capture_output=True, text=True)
+                log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+                if proc.returncode != 0:
+                    failed.append(proc.stderr)
+            with open(build_log_path(), "w") as f:
+                f.write("\n".join(log))
+            if failed:
+                raise RuntimeError(f"nvcc failed:\n{failed[0][-4000:]}")
+            os.replace(lib_tmp, so)  # atomic: concurrent builders never see half a file
+    return bind(ctypes.CDLL(so))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entries' argument and result types on ``lib``."""
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

@@ -3,9 +3,11 @@
 Replaces ``fast_nms_stack`` of
 ``orb_slam3_detailed_comments_kor_tpu/ops/pallas_fast.py`` (Pallas body
 ``_kernel_factory`` at :42, ``pl.pallas_call`` in ``_fast_nms_pallas`` at
-:149). The kernel (``csrc/fast_nms.cu``) is memory-bound: one read and
-three writes per pixel of the [2·NL, Hp, Wp] level stack, with the circle
-test, both score maps and the NMS done out of shared memory. Its plain
+:149). The kernel (``csrc/fast_nms.cu``) is bound by bytes: it writes
+three maps over the whole [2·NL, Hp, Wp] level stack and reads each level
+once. Tiles outside their level's interior only write zeros; inside, an
+exact compass pre-test leaves the full circle test and both score maps to
+the few candidate pixels, and the NMS runs out of shared memory. Its plain
 version is ``fast.fast_nms_maps``; the per-cell high→low fallback after it
 stays plain torch, as in the reference.
 """
@@ -34,7 +36,8 @@ def fast_nms(flat, hs, ws, th_high: float, th_low: float):
     """flat [B·NL, Hp, Wp] float32; hs/ws [NL] int true level extents.
 
     Returns (s_hi, s_lo, raw_lo), each [B·NL, Hp, Wp]. A CPU tensor takes
-    the plain version; a CUDA tensor launches the kernel.
+    the plain version; a CUDA tensor launches the kernel, which needs
+    Wp % 4 == 0 and a 16-byte aligned ``flat``.
     """
     if flat.device.type == "cpu":
         return fast_nms_plain(flat, hs, ws, th_high, th_low)
@@ -42,6 +45,10 @@ def fast_nms(flat, hs, ws, th_high: float, th_low: float):
     if flat.dtype != torch.float32 or flat.dim() != 3:
         raise ValueError(f"expected float32 [BN,H,W], got {flat.dtype} {tuple(flat.shape)}")
     BN, Hp, Wp = flat.shape
+    if Wp % 4 != 0 or flat.data_ptr() % 16 != 0:
+        # the kernel moves rows as float4; the pyramid pads Wp to 128
+        raise ValueError(f"expected a width that is a multiple of 4 and a 16-byte aligned "
+                         f"stack, got width {Wp} at address {flat.data_ptr():#x}")
     hs_np = np.ascontiguousarray(hs, dtype=np.int32)
     ws_np = np.ascontiguousarray(ws, dtype=np.int32)
     s_hi = torch.empty_like(flat)

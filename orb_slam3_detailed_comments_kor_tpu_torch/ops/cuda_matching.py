@@ -5,12 +5,13 @@ Replaces ``fused_masked_best2`` of
 body ``_kernel`` at :34, ``pl.pallas_call`` at :123): per row of A, the
 best and second-best Hamming distance and the argbest over the allowed
 columns of B, without the [N, M] distance matrix. The kernel
-(``csrc/masked_best2.cu``) popcounts packed descriptors and is bound by
-reading the uint8 mask; one warp per row, lanes striding over columns.
+(``csrc/masked_best2.cu``) is bound by reading the uint8 mask: one warp
+per row scans it in 16-byte words, skips zero words, and popcounts packed
+descriptors only at allowed columns.
 
 Descriptors may be given as {0,1} bits [N,256] (the reference's layout)
 or packed int32 [N,8] (``orb.pack_descriptors``); the kernel takes packed
-ones, so callers that hold packed descriptors skip the unpack.
+ones, and every caller on the main path hands them in packed.
 """
 
 from __future__ import annotations

@@ -148,7 +148,10 @@ def compute_stereo_matches(
     max_disp = bf / 0.3  # maxD = bf / minZ with minZ = 0.3 m
     disp_ok = (disp > 0.0) & (disp < max_disp)
     mask = row_ok & lvl_ok & disp_ok & left.valid[:, None] & right.valid[None, :]
-    best_idx, best, _ = cuda_matching.fused_masked_best2(left.desc, right.desc, mask)
+    # packed once per view, so the matcher's wrapper hands them straight in
+    best_idx, best, _ = cuda_matching.fused_masked_best2(
+        orb_ops.pack_descriptors(left.desc), orb_ops.pack_descriptors(right.desc), mask
+    )
     matched = (best <= TH_HIGH) & left.valid
     xr_match = right.xy[best_idx.to(torch.int64), 0]  # [N] level-0 right u
 

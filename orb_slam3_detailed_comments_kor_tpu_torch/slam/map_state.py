@@ -58,7 +58,8 @@ class MapState(NamedTuple):
 _U32_FIELDS = ("kf_desc", "lm_desc")
 
 
-def empty_map(max_kf: int, n_feat: int, max_lm: int, device=None) -> MapState:
+def empty_map(max_kf: int, n_feat: int, max_lm: int, device="cuda") -> MapState:
+    """An empty map on ``device`` (the card unless the caller names another)."""
     K, N, L = max_kf, n_feat, max_lm
     f32 = dict(dtype=torch.float32, device=device)
     i32 = dict(dtype=torch.int32, device=device)

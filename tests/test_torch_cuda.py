@@ -7,17 +7,18 @@ machine, from the repository root:
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
 
 Every comparison is exact: the kernels compute the same integer and
-float operations in the same order as the plain versions.
+float operations in the same order as the plain versions. The edge cases
+are ``chip_smoke.py``'s, which checks the same ones on every run.
 """
 
-import numpy as np
 import pytest
 import torch
 
 torch.set_num_threads(1)
 
+import chip_smoke  # noqa: E402
 from orb_slam3_detailed_comments_kor_tpu_torch.ops import cuda_fast, cuda_gather, cuda_matching  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.ops import pyramid  # noqa: E402
+from orb_slam3_detailed_comments_kor_tpu_torch.ops import orb  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -29,23 +30,32 @@ def dev():
     return torch.device("cuda")
 
 
-def test_fast_nms_kernel(dev):
-    shapes = pyramid.level_shapes(120, 200, 4, 1.2)
-    hs = [s[0] for s in shapes]
-    ws = [s[1] for s in shapes]
-    g = torch.Generator(device=dev).manual_seed(0)
-    flat = torch.zeros((8, 120, 256), device=dev)
-    for b in range(8):
-        h, w = shapes[b % 4]
-        flat[b, :h, :w] = torch.floor(torch.rand((h, w), generator=g, device=dev) * 255)
+@pytest.mark.parametrize(
+    "h,w,wp,th_hi,th_lo", [(120, 200, 256, 20.0, 7.0), (480, 752, 768, 20.0, 7.0),
+                           *chip_smoke.FAST_EDGE_CASES],
+)
+def test_fast_nms_kernel(dev, h, w, wp, th_hi, th_lo):
+    flat, hs, ws = chip_smoke.fast_edge_inputs(h, w, wp, dev)
     before = cuda_fast.fast_nms.launches
-    got = cuda_fast.fast_nms(flat, hs, ws, 20.0, 7.0)
+    got = cuda_fast.fast_nms(flat, hs, ws, th_hi, th_lo)
     assert cuda_fast.fast_nms.launches == before + 1
-    ref = cuda_fast.fast_nms_plain(flat, hs, ws, 20.0, 7.0)
+    ref = cuda_fast.fast_nms_plain(flat, hs, ws, th_hi, th_lo)
     torch.cuda.synchronize()
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
     assert (ref[0] > 0).sum() > 100
+
+
+@pytest.mark.parametrize("width,offset", [(202, 0), (204, 1)])
+def test_fast_nms_needs_float4_rows(dev, width, offset):
+    # the kernel moves rows as float4: a width that is no multiple of 4 or a
+    # stack that starts off a 16-byte boundary is refused before the launch
+    buf = torch.zeros(8 * 16 * width + offset, device=dev)
+    flat = buf[offset:].view(8, 16, width)
+    before = cuda_fast.fast_nms.launches
+    with pytest.raises(ValueError):
+        cuda_fast.fast_nms(flat, [16, 12], [width, width - 40], 20.0, 7.0)
+    assert cuda_fast.fast_nms.launches == before
 
 
 def test_gather_patches_kernel(dev):
@@ -61,15 +71,15 @@ def test_gather_patches_kernel(dev):
     assert torch.equal(got, ref)
 
 
-@pytest.mark.parametrize("n,m", [(128, 128), (513, 130), (4096, 1200)])
-def test_masked_best2_kernel(dev, n, m):
-    rng = np.random.default_rng(n + m)
-    a = torch.from_numpy((rng.random((n, 256)) > 0.5).astype(np.uint8)).to(dev)
-    b = torch.from_numpy((rng.random((m, 256)) > 0.5).astype(np.uint8)).to(dev)
-    mask = torch.from_numpy(rng.random((n, m)) > 0.5).to(dev)
-    mask[1] = False
-    got = cuda_matching.fused_masked_best2(a, b, mask)
+@pytest.mark.parametrize(
+    "n,m,offset", [(128, 128, 0), (513, 130, 0), (4096, 1200, 0), *chip_smoke.MATCH_EDGE_CASES],
+)
+def test_masked_best2_kernel(dev, n, m, offset):
+    a, b, mask = chip_smoke.matcher_edge_inputs(n, m, offset, dev)
     ref = cuda_matching.fused_masked_best2_plain(a, b, mask)
-    torch.cuda.synchronize()
-    for x, y in zip(got, ref):
-        assert torch.equal(x, y)
+    # packed descriptors, as the main path hands them, and {0,1} bits
+    for args in ((a, b, mask), (orb.unpack_descriptors(a), orb.unpack_descriptors(b), mask)):
+        got = cuda_matching.fused_masked_best2(*args)
+        torch.cuda.synchronize()
+        for x, y in zip(got, ref):
+            assert torch.equal(x, y)

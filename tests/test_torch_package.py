@@ -6,6 +6,8 @@ Tolerances: the config dataclasses are compared exactly.
 
 import ast
 import dataclasses
+import importlib
+import inspect
 import os
 import subprocess
 import sys
@@ -86,3 +88,17 @@ def test_config_fields_equal(name):
     assert [f.name for f in dataclasses.fields(j)] == [f.name for f in dataclasses.fields(t)]
     assert dataclasses.asdict(j()) == dataclasses.asdict(t())
     assert vars(jcfg.SensorType).keys() == vars(tcfg.SensorType).keys()
+
+
+@pytest.mark.parametrize(
+    "module,name",
+    [("slam.map_state", "empty_map"), ("io.synthetic", "default_scene"),
+     ("models.camera", "camera_params_from_config")],
+)
+def test_entry_points_default_to_cuda(module, name):
+    """Entry points that make tensors from nothing put them on the card
+    unless the caller names a device. Read from the signature: a call
+    without a device needs a card, and the CPU tests name ``cpu``."""
+    fn = getattr(importlib.import_module(f"{PKG}.{module}"), name)
+    default = inspect.signature(fn).parameters["device"].default
+    assert default is not None and torch.device(default).type == "cuda"

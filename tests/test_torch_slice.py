@@ -120,7 +120,8 @@ def test_make_keyframe_agrees(slice_run):
     cfg, ms0 = slice_run["cfg"], slice_run["ms0"]
     frame = tfe.frame_from_numpy(slice_run["frame0"], "cpu")
     assert tfe.frame_to_numpy(frame)["desc_packed"].dtype == np.uint32
-    ms = tms.empty_map(cfg.capacity.max_keyframes, frame.n, cfg.capacity.max_landmarks)
+    ms = tms.empty_map(cfg.capacity.max_keyframes, frame.n, cfg.capacity.max_landmarks,
+                       device="cpu")
     ms = ttr.make_keyframe(
         ms, frame, torch.eye(3), torch.zeros(3), 0.0, 0,
         torch.full((ms.L,), -1, dtype=torch.int32),
@@ -141,7 +142,7 @@ def test_port_renderer_matches(slice_run):
     H, W, params = slice_run["H"], slice_run["W"], slice_run["params"]
     il, ir, _ = tsyn.stereo_pair(
         torch.from_numpy(params), torch.from_numpy(slice_run["Rs"][1]),
-        torch.from_numpy(slice_run["ts"][1]), 0.11, tsyn.default_scene(), h=H, w=W,
+        torch.from_numpy(slice_run["ts"][1]), 0.11, tsyn.default_scene("cpu"), h=H, w=W,
     )
     for got, ref in ((il, slice_run["imgs"][1][0]), (ir, slice_run["imgs"][1][1])):
         diff = np.abs(got.numpy() - ref)
