@@ -37,8 +37,9 @@ _F = ctypes.c_float
 # cudaError_t of its launch (0 = success).
 _SIGNATURES = {
     "osk_fast_nms": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _F, _F, _P),
-    "osk_gather_patches": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "osk_gather_patches": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "osk_masked_best2": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
+    "osk_noop": (_P,),
 }
 
 
@@ -121,6 +122,11 @@ def launch(name: str, *args) -> None:
     if err != 0:
         msg = lib.osk_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
+
+
+def noop() -> None:
+    """Launch an empty kernel on the current stream (the launch floor)."""
+    launch("osk_noop", stream())
 
 
 def stream() -> int:

@@ -58,16 +58,19 @@ def test_fast_nms_needs_float4_rows(dev, width, offset):
     assert cuda_fast.fast_nms.launches == before
 
 
-def test_gather_patches_kernel(dev):
-    g = torch.Generator(device=dev).manual_seed(1)
-    img = torch.rand((300, 128), generator=g, device=dev)
-    rows = torch.randint(-20, 320, (97,), generator=g, device=dev, dtype=torch.int32)
-    cols = torch.randint(-20, 140, (97,), generator=g, device=dev, dtype=torch.int32)
-    got = cuda_gather.gather_patches(img, rows, cols, 48, 45)
-    r = torch.clamp(rows, 0, 300 - 48)
-    c = torch.clamp(cols, 0, 128 - 45)
-    ref = cuda_gather.gather_patches_plain(img, r, c, 48, 45)
+@pytest.mark.parametrize(
+    "case", [(7680, 768, 2400, 48, 45, "int64", "int32"), (3840, 768, 1200, 11, 21, "int32", "int32"),
+             *chip_smoke.GATHER_EDGE_CASES],
+)
+def test_gather_patches_kernel(dev, case):
+    # raw corners of either type: the kernel clamps them, the plain version too
+    img, rows, cols, ph, pw = chip_smoke.gather_edge_inputs(*case, dev)
+    before = cuda_gather.gather_patches.launches
+    got = cuda_gather.gather_patches(img, rows, cols, ph, pw)
+    assert cuda_gather.gather_patches.launches == before + (rows.shape[0] > 0)
+    ref = cuda_gather.gather_patches_plain(img, rows, cols, ph, pw)
     torch.cuda.synchronize()
+    assert got.shape == ref.shape == (rows.shape[0], ph, pw)
     assert torch.equal(got, ref)
 
 

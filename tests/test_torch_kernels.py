@@ -79,18 +79,31 @@ def test_select_keypoints_exact(fast_results):
     assert np.array_equal(vj, vt.numpy())
 
 
-@pytest.mark.parametrize("ph,pw", [(48, 45), (11, 21)])
-def test_gather_patches_exact(ph, pw):
+@pytest.mark.parametrize(
+    "ph,pw,k,row_t,col_t",
+    [pytest.param(48, 45, 64, np.int32, np.int32, id="48-45"),
+     pytest.param(11, 21, 64, np.int32, np.int32, id="11-21"),
+     # the ORB call's corner types, and int64 both
+     pytest.param(48, 45, 64, np.int64, np.int32, id="48-45-int64-rows"),
+     pytest.param(11, 21, 64, np.int64, np.int64, id="11-21-int64"),
+     pytest.param(11, 21, 1, np.int32, np.int64, id="11-21-K1"),
+     pytest.param(48, 45, 0, np.int64, np.int32, id="48-45-K0")],
+)
+def test_gather_patches_exact(ph, pw, k, row_t, col_t):
     rng = np.random.default_rng(2)
     img = rng.random((200, 96)).astype(np.float32)
-    rows = rng.integers(-30, 230, size=64).astype(np.int32)  # many need clamping
-    cols = rng.integers(-30, 120, size=64).astype(np.int32)
+    rows = rng.integers(-30, 230, size=k)  # many need clamping
+    cols = rng.integers(-30, 120, size=k)
     jfn = jax.jit(jpg.gather_patches, static_argnums=(3, 4))
-    pj = np.asarray(jfn(jnp.asarray(img), jnp.asarray(rows), jnp.asarray(cols), ph, pw))
+    # JAX takes int32 corners (no x64); the port gets the same values as row_t/col_t
+    pj = np.asarray(jfn(jnp.asarray(img), jnp.asarray(rows.astype(np.int32)),
+                        jnp.asarray(cols.astype(np.int32)), ph, pw))
     pt = cuda_gather.gather_patches(
-        torch.from_numpy(img), torch.from_numpy(rows), torch.from_numpy(cols), ph, pw
+        torch.from_numpy(img), torch.from_numpy(rows.astype(row_t)),
+        torch.from_numpy(cols.astype(col_t)), ph, pw
     )
-    assert pt.shape == (64, ph, pw)
+    assert pj.shape == pt.shape == (k, ph, pw)
+    assert pt.dtype == torch.float32
     assert np.array_equal(pj, pt.numpy())
 
 
