@@ -32,6 +32,24 @@ Phase 2  the main path: renders 21 strafe frames on the card, initialises the
          tracked frame (LAUNCHES_PER_FRAME) on every tracked frame.
 Phase 3  tracks frame 1 again on the CPU (plain versions) from the same map
          and checks that the card and the CPU agree.
+Phase 4  the SLAM loop at bench scale: ``slam.system.SlamSystem`` (loop
+         closing off) over bench.py's 130-frame strafe sequence, rendered on
+         the card, after a warm-up system over its first frames. Blocks on
+         each frame's pose (bench.py's latency pass) and prints frame wall
+         p50/p99 (frames 5-129), frames/s, the ATE, the keyframes, the peak
+         device memory and the device ms of one local-BA, fusion and
+         landmark-culling slice. It fails unless the final state is OK, all
+         130 frames are recorded, >= 10 keyframes were inserted, the
+         counters (zeroed before it) show each kernel's fixed launches per
+         tracked frame, a frame that services a local-BA slice and one that
+         services a fusion slice make no synchronizing call outside the
+         batched decision read, and the ATE is at most the JAX reference's
+         (REF_ATE_M) plus 5 mm.
+Phase 5  the card against the CPU for the loop: the small configuration
+         (240x376, 600 features, 8 keyframe slots) over 16 frames with
+         decision_batch=1 on both; keyframes must be inserted at the same
+         frames, camera centres agree within TRANS_TOL and rotations within
+         ROT_TOL.
 
 The last stdout line is {"ok": true, "device": {...}}; the line before it
 lists every kernel with its launches, error, times and bound, and the
@@ -69,6 +87,19 @@ MAX_CENTRE_ERR = 0.03       # m; the JAX reference stays within 0.0097 m
 DEVICE = "cuda:0"
 # parity tolerances between the card and the CPU on one tracked frame
 ROT_TOL, TRANS_TOL = 1e-3, 2e-3
+# Phases 4-5: the SLAM loop. bench.py's stereo configuration and sequence
+# (130 strafe frames at 0.03 m/frame, 20 fps, 64 keyframe slots, 4096 local
+# landmarks, a keyframe at least every 10 frames), loop closing off.
+LOOP_FRAMES, LOOP_WARMUP, FPS = 130, 24, 20.0
+# ATE of the JAX reference (orb_slam3_detailed_comments_kor_tpu.slam.system.
+# SlamSystem, enable_loop_closing=False) on this configuration and sequence,
+# eval.ate.ate_rmse over all 130 frames, run on a CPU by
+# tools/jax_loop_ate.py: 14 keyframes, final state OK, 2309 landmarks.
+REF_ATE_M = 0.005604550522747823
+ATE_MARGIN = 0.005
+MIN_LOOP_KF = 10
+SMALL_LOOP_FRAMES = 16
+SLEEP_MS = 400  # the sleep kernel that a slice call must return before
 # H100 SXM (NVIDIA data sheet, 700 W): HBM3 at 3.35 TB/s, and 67 TFLOP/s
 # fp32 on the CUDA cores, which counts an FMA as two: 33.5 T fp32
 # instructions/s (132 SMs x 128 lanes x 1.98 GHz), also the rate at which
@@ -137,6 +168,41 @@ def device_ms(fn, runs=TIMING_RUNS, reps=5):
         torch.cuda.synchronize()
         per_call.append(s.elapsed_time(e) / runs)
     return statistics.median(per_call), min(per_call), max(per_call)
+
+
+def profiled_device_ms(fn, reps=3):
+    """Device milliseconds of one call of ``fn()`` as torch.profiler's CUDA
+    activity records it: the sum of the durations of the device work it
+    put on the stream, the median over ``reps`` calls. Unlike ``device_ms``
+    it needs no sleep kernel long enough to cover the host's enqueue, which
+    a call of ~1,000 launches can outlast."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        times.append(sum(e.time_range.elapsed_us() for e in prof.events()
+                         if e.device_type == DeviceType.CUDA) / 1e3)
+    return statistics.median(times)
+
+
+def host_ms_behind_sleep(fn):
+    """Host ms that one call of ``fn()`` takes while a SLEEP_MS sleep kernel
+    holds the stream: about its enqueue time, or at least the sleep if the
+    call waits on the device."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(SLEEP_MS * 1e-3 * 2e9))  # ~2 GHz SM clock
+    t0 = time.perf_counter()
+    fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    return host_ms
 
 
 def bound(nbytes, ops, **counts):
@@ -376,6 +442,78 @@ def step(ms, il, ir, state, cam):
     )
 
 
+def loop_config(small=False):
+    """The port's SLAMConfig of the SLAM loop: bench.py's stereo setup, or
+    (small) the 240x376 / 600-feature geometry of tests/test_slam_e2e.py
+    with 8 keyframe slots (so capacity reclaim runs), a keyframe every
+    second frame (kf_ref_ratio 0.5, so that the frame gap decides every
+    insertion) and synchronous decisions."""
+    from orb_slam3_detailed_comments_kor_tpu_torch.config import (
+        CameraConfig, CapacityConfig, ORBConfig, SLAMConfig, SensorType, TrackingConfig,
+    )
+
+    if small:
+        h, w, fx = 240, 376, 230.0
+        return SLAMConfig(
+            sensor=SensorType.STEREO,
+            camera=CameraConfig(width=w, height=h, fx=fx, fy=fx, cx=w / 2.0, cy=h / 2.0,
+                                bf=BASELINE * fx, th_depth=35.0),
+            orb=ORBConfig(n_features=600, cell_size=24),
+            capacity=CapacityConfig(max_keyframes=8, max_landmarks=4096, max_local_landmarks=2048),
+            tracking=TrackingConfig(max_frames_between_kf=2, kf_ref_ratio=0.5, decision_batch=1),
+        )
+    return SLAMConfig(
+        sensor=SensorType.STEREO,
+        camera=CameraConfig(width=W, height=H, fx=FX, fy=FX, cx=W / 2.0, cy=H / 2.0, bf=BASELINE * FX),
+        orb=ORBConfig(n_features=N_FEATURES, cell_size=CELL),
+        capacity=CapacityConfig(max_keyframes=MAX_KF, max_landmarks=MAX_LM, max_local_landmarks=4096),
+        tracking=TrackingConfig(max_frames_between_kf=10),
+    )
+
+
+def render_loop_sequence(cfg, n, dev):
+    """The strafe sequence at ``cfg``'s camera on ``dev``: ground-truth
+    centres [n, 3] (numpy) and n stereo pairs."""
+    from orb_slam3_detailed_comments_kor_tpu_torch.io import synthetic
+
+    c = cfg.camera
+    cam = torch.tensor([c.fx, c.fy, c.cx, c.cy], dtype=torch.float32, device=dev)
+    scene = synthetic.default_scene(dev)
+    Rs, ts = synthetic.make_trajectory(n, "strafe", speed=SPEED)
+    frames = [synthetic.stereo_pair(cam, torch.from_numpy(Rs[i]).to(dev), torch.from_numpy(ts[i]).to(dev),
+                                    BASELINE, scene, h=c.height, w=c.width)[:2] for i in range(n)]
+    return ts, frames
+
+
+def run_loop(cfg, frames, dev, on_frame=None, timer=False):
+    """Feed ``frames`` to a new SlamSystem on ``dev``. ``on_frame(i, slam,
+    call)`` may wrap each frame's ``call()``; ``timer`` turns on the
+    system's host stage timer. Returns (slam, the frames at which a
+    keyframe was inserted)."""
+    from orb_slam3_detailed_comments_kor_tpu_torch.slam.system import SlamSystem
+    from orb_slam3_detailed_comments_kor_tpu_torch.utils.timing import StageTimer
+
+    slam = SlamSystem(cfg, device=dev)
+    slam.timer = StageTimer(enabled=timer)
+    kf_at = []
+    for i, (il, ir) in enumerate(frames):
+        n0 = slam.stats["kf_inserted"]
+        call = lambda _i=i, _l=il, _r=ir: slam.track_stereo(_l, _r, _i / FPS)
+        on_frame(i, slam, call) if on_frame else call()
+        if slam.stats["kf_inserted"] != n0:
+            kf_at.append(i)
+    return slam, kf_at
+
+
+def trajectory_diff(traj_a, traj_b):
+    """Per-frame camera-centre distances (m) and rotation angles (rad)
+    between two ``trajectory_arrays()`` results."""
+    dc = np.linalg.norm(traj_a[1].astype(np.float64) - traj_b[1], axis=1)
+    M = np.einsum("tji,tjk->tik", traj_a[2].astype(np.float64), traj_b[2].astype(np.float64))
+    skew = np.stack([M[:, 2, 1] - M[:, 1, 2], M[:, 0, 2] - M[:, 2, 0], M[:, 1, 0] - M[:, 0, 1]], -1)
+    return dc, np.arcsin(np.clip(np.linalg.norm(skew, axis=1) / 2.0, 0.0, 1.0))
+
+
 def max_abs_err(a, b):
     """Largest |a - b| over a pair of tensors or of tuples of tensors."""
     if isinstance(a, torch.Tensor):
@@ -408,7 +546,6 @@ def main() -> int:
     from orb_slam3_detailed_comments_kor_tpu_torch.slam import map_state as msx
 
     dev = torch.device(DEVICE)
-    kind = torch.cuda.get_device_name(0)
 
     # ---- phase 0: card + build -------------------------------------------
     smi = subprocess.run(
@@ -659,6 +796,133 @@ def main() -> int:
             and bool(ok_c) == ok_g):
         raise AssertionError("card and CPU disagree on frame 1")
 
+    # ---- phase 4: the SLAM loop at bench scale ----------------------------
+    from orb_slam3_detailed_comments_kor_tpu_torch.eval import ate
+    from orb_slam3_detailed_comments_kor_tpu_torch.slam import map_merging, tracking
+    from orb_slam3_detailed_comments_kor_tpu_torch.slam import system as slam_mod
+
+    cfg = loop_config()
+    t_p4 = time.time()
+    gt, loop_frames = render_loop_sequence(cfg, LOOP_FRAMES, dev)
+    warm, _ = run_loop(cfg, loop_frames[:LOOP_WARMUP], dev)  # library handles, allocator, first BA
+    warm.flush_decisions()
+    del warm
+    torch.cuda.synchronize()
+    log(f"phase 4: rendered {LOOP_FRAMES} frames and warmed up on {LOOP_WARMUP} in {time.time() - t_p4:.1f} s")
+    lat, syncs, after0 = [], {}, {}
+    read_numpy = slam_mod._HostRead.numpy
+
+    def unwatched_read(self):
+        # the batched decision read is the loop's one planned wait: left out
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return read_numpy(self)
+        finally:
+            torch.cuda.set_sync_debug_mode("warn")
+
+    def timed(i, slam, call):
+        head = slam._bg_queue[0][0] if slam._bg_queue else None
+        t0 = time.perf_counter()
+        if head in ("local_ba_chunk", "fuse") and head not in syncs:
+            slam_mod._HostRead.numpy = unwatched_read
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    torch.cuda.set_sync_debug_mode("warn")
+                    call()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                slam_mod._HostRead.numpy = read_numpy
+            found = [str(w.message).splitlines()[0] for w in caught if "synchroniz" in str(w.message)]
+            syncs[head] = (i, len(found), sorted(set(found))[:5])
+        else:
+            call()
+        slam.t_cw.cpu()  # block on the frame's pose, as bench.py's latency pass does
+        lat.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            after0.update({k: fn.launches for k, fn in counters.items()})
+
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t_pass = time.perf_counter()
+    slam, kf_at = run_loop(cfg, loop_frames, dev, timed, timer=True)
+    pass_s = time.perf_counter() - t_pass
+    launches4 = {k: fn.launches for k, fn in counters.items()}
+    peak4 = torch.cuda.max_memory_allocated() / 2**20
+    n_tracked = LOOP_FRAMES - 1
+    per_frame4 = {k: (launches4[k] - after0[k]) / n_tracked for k in launches4}
+    _, centers, _ = slam.trajectory_arrays()
+    ate_m = ate.ate_rmse(centers, gt[: len(centers)])
+    lat_s = np.array(lat[5:])
+    loop = dict(
+        frames=len(slam.trajectory), state=slam.state, keyframes_inserted=slam.stats["kf_inserted"],
+        keyframe_frames=kf_at, stats=slam.stats, landmarks=int(slam.ms.lm_valid.sum()),
+        ate_m=ate_m, ref_ate_m=REF_ATE_M, frame_p50_ms=float(np.percentile(lat_s, 50)),
+        frame_p99_ms=float(np.percentile(lat_s, 99)), frame_max_ms=float(lat_s.max()),
+        frames_per_s=LOOP_FRAMES / pass_s, peak_mib=peak4, launches=launches4, launches_frame0=after0,
+        launches_per_tracked_frame=per_frame4,
+        syncs={k: {"frame": v[0], "count": v[1], "calls": v[2]} for k, v in syncs.items()},
+    )
+    # one slice of each kind, timed on the device from the final map with the
+    # system's own arguments
+    ms_f, kf_f, cap = slam.ms, slam.n_kf - 1, cfg.capacity
+    slices = {
+        "local_ba_chunk": lambda: tracking.local_ba_step(
+            ms_f, kf_f, slam.cam_params, cfg.camera.bf, window=min(8, cap.max_local_kfs),
+            lm_cap=cap.max_local_landmarks, iters=2),
+        "fuse": lambda: map_merging.fuse_duplicate_landmarks(
+            ms_f, ms_f.lm_valid & (ms_f.lm_first_kf == kf_f), radius=max(0.5 * slam.baseline, 0.02)),
+        "cull_lm": lambda: tracking.cull_landmarks(ms_f),
+    }
+    loop["slice_device_ms"] = {k: profiled_device_ms(f) for k, f in slices.items()}
+    # and one call of each behind a long sleep kernel: a call that waited on
+    # the device anywhere (the sync debug mode misses some waits) returns
+    # only after the sleep ends
+    loop["slice_host_ms_behind_sleep"] = {k: host_ms_behind_sleep(f) for k, f in slices.items()}
+    loop["host_stage_ms"] = {k: {"count": v["count"], "p50_ms": v["p50_ms"], "max_ms": v["max_ms"],
+                                 "total_ms": v["total_ms"]} for k, v in slam.timer.summary().items()}
+    log(f"phase 4 ({smi}): " + json.dumps(loop))
+    log(f"phase 4: {LOOP_FRAMES} frames in {pass_s:.2f} s ({loop['frames_per_s']:.2f} frames/s), frame wall "
+        f"p50 {loop['frame_p50_ms']:.2f} ms p99 {loop['frame_p99_ms']:.2f} ms; ATE {ate_m * 1e3:.3f} mm "
+        f"(JAX reference {REF_ATE_M * 1e3:.3f} mm); {slam.stats['kf_inserted']} keyframes; slices "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in loop["slice_device_ms"].items())
+        + f"; peak {peak4:.1f} MiB; phase 4 took {time.time() - t_p4:.1f} s")
+    bad = []
+    if slam.state != slam_mod.TrackingState.OK:
+        bad.append(f"final state {slam.state}")
+    if len(slam.trajectory) != LOOP_FRAMES:
+        bad.append(f"{len(slam.trajectory)} frames recorded")
+    if slam.stats["kf_inserted"] < MIN_LOOP_KF:
+        bad.append(f"{slam.stats['kf_inserted']} keyframes inserted")
+    for k, n in LAUNCHES_PER_FRAME.items():
+        if after0.get(k, 0) < 1 or per_frame4[k] != n:
+            bad.append(f"{k}: {after0.get(k)} launches at frame 0, {per_frame4[k]} per tracked frame")
+    for slice_kind in ("local_ba_chunk", "fuse"):
+        if slice_kind not in syncs or syncs[slice_kind][1] != 0:
+            bad.append(f"{slice_kind}: synchronizing calls {syncs.get(slice_kind)}")
+    for k, host_ms in loop["slice_host_ms_behind_sleep"].items():
+        if host_ms >= 0.5 * SLEEP_MS:
+            bad.append(f"{k}: returned after {host_ms:.1f} ms behind a {SLEEP_MS} ms sleep kernel")
+    if not ate_m <= REF_ATE_M + ATE_MARGIN:
+        bad.append(f"ATE {ate_m} m")
+    if bad:
+        raise AssertionError("phase 4: " + "; ".join(bad))
+
+    # ---- phase 5: the card against the CPU for the loop ------------------
+    t_p5 = time.time()
+    small = loop_config(small=True)
+    _, frames5 = render_loop_sequence(small, SMALL_LOOP_FRAMES, cpu)
+    card, kf_card = run_loop(small, [(a.to(dev), b.to(dev)) for a, b in frames5], dev)
+    host, kf_host = run_loop(small, frames5, cpu)
+    d_c, d_r = trajectory_diff(card.trajectory_arrays(), host.trajectory_arrays())
+    log(f"phase 5: keyframes at {kf_card} (card) {kf_host} (cpu), stats {card.stats} / {host.stats}; "
+        f"centre diff max {d_c.max():.2e} m, rotation diff max {d_r.max():.2e} rad; per frame mm "
+        f"{np.round(d_c * 1e3, 3).tolist()}; {time.time() - t_p5:.1f} s")
+    if kf_card != kf_host or not (d_c.max() <= TRANS_TOL and d_r.max() <= ROT_TOL):
+        raise AssertionError("phase 5: card and CPU disagree on the loop")
+
     sources = {
         "fast_nms": ("csrc/fast_nms.cu", "orb_slam3_detailed_comments_kor_tpu/ops/pallas_fast.py:149"),
         "gather_patches": ("csrc/gather_patches.cu", "orb_slam3_detailed_comments_kor_tpu/ops/pallas_gather.py:91"),
@@ -672,6 +936,7 @@ def main() -> int:
             "name": k, "route": "cuda",
             "source": "orb_slam3_detailed_comments_kor_tpu_torch/" + src, "replaces": rep,
             "launches": launches[k], "launches_per_frame": int(per_frame[k]),  # checked whole
+            "launches_slam_loop": launches4[k], "launches_per_frame_slam_loop": int(per_frame4[k]),
             "max_abs_err": info["max_abs_err"], "ms": main_case["ms"],
             "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
             "bound_by": main_case["bound_by"], "library_ms": main_case["library_ms"],
@@ -679,7 +944,7 @@ def main() -> int:
             "edge_cases": info["edge_cases"], "cases": info["cases"],
         })
     print(json.dumps({"kernels": kernels, "launch_floor_ms": launch_floor[0]}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
 

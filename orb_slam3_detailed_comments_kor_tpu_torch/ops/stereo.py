@@ -162,9 +162,14 @@ def compute_stereo_matches(
     row_off = torch.arange(nl, dtype=torch.int32, device=dev) * hh
     level_h, level_w = _level_extents(tuple(map(tuple, lvl_hw)), dev)
     lvl = left.level.to(torch.int64)
+    # the reference divides by scale ** level; XLA rewrites a / b ** c as
+    # a * b ** -c, and the level coordinates of corners whose subpixel
+    # offset is clamped to ±0.5 sit on the rounding boundary of the SAD
+    # window, so the port multiplies as the compiled reference does
+    inv_sigma_l = scale ** (-left.level.to(torch.float32))
     du_lvl, sad_all, xi_lvl = _sad_refine_atlas(
         atlas_l, atlas_r, row_off, level_w, level_h, lvl,
-        left.xy[:, 0] / sigma_l, left.xy[:, 1] / sigma_l, xr_match / sigma_l,
+        left.xy[:, 0] * inv_sigma_l, left.xy[:, 1] * inv_sigma_l, xr_match * inv_sigma_l,
         left_patches=left_patches,
     )
     du_all = du_lvl * sigma_l

@@ -1,7 +1,8 @@
 """Device-resident SoA map state: keyframes, landmarks, observation graph.
 
 Port of ``MapState``, ``empty_map``, ``allocate_slots``,
-``landmark_scale_band`` and ``predict_level`` from
+``covisibility_weights``, ``landmark_scale_band``, ``predict_level`` and
+``compact_keyframes`` from
 ``orb_slam3_detailed_comments_kor_tpu/slam/map_state.py``, plus the numpy
 converters that carry a map between the two packages. Packed descriptors
 (the reference's uint32 words) are stored as int32 bit patterns.
@@ -116,8 +117,30 @@ def scatter_drop(arr: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
     leaves the winner of duplicate indices undefined, so every write the
     caller discards must go to the parking slot, never to a real one."""
     buf = torch.cat([arr, arr[:1]])
+    if not isinstance(vals, torch.Tensor):
+        # a Python value assigned through an index tensor is copied from the
+        # host, and the copy waits on the stream: fill it on the device
+        vals = torch.full((), vals, dtype=arr.dtype, device=arr.device)
     buf[idx.to(torch.int64)] = vals
     return buf[:-1]
+
+
+def scatter_last(arr: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
+    """``arr.at[idx].set(vals, mode="drop")`` as the reference's CPU scatter
+    applies it: updates land in order, so among updates to one index the
+    last one wins (torch leaves that winner undefined); indices >= len(arr)
+    are dropped (the callers' indices are never negative). The winner is
+    found with an integer ``amax`` scatter, so every device agrees."""
+    n = arr.shape[0]
+    idx = idx.to(torch.int64)
+    inside = (idx >= 0) & (idx < n)
+    order = torch.arange(idx.shape[0], device=idx.device)
+    last = torch.full((n + 1,), -1, dtype=torch.int64, device=idx.device)
+    last = last.scatter_reduce(0, torch.where(inside, idx, n), torch.where(inside, order, -1), "amax")[:n]
+    if not isinstance(vals, torch.Tensor) or vals.dim() == 0:
+        vals = torch.full((), vals, dtype=arr.dtype, device=arr.device).expand(idx.shape[0], *arr.shape[1:])
+    hit = (last >= 0).reshape((n,) + (1,) * (arr.dim() - 1))
+    return torch.where(hit, vals[torch.clamp(last, min=0)], arr)
 
 
 def allocate_slots(free: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
@@ -135,13 +158,37 @@ def allocate_slots(free: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
     return torch.where(want, got, -1)
 
 
+def covisibility_weights(ms: MapState, kf_set: torch.Tensor) -> torch.Tensor:
+    """Shared-landmark counts between keyframes (KeyFrame::UpdateConnections
+    analog, derived not maintained).
+
+    kf_set [W] keyframe indices -> [W, K] int32 counts of landmarks shared
+    with every keyframe in the map: the product of two 0/1 indicators,
+    exact in f32 (TF32 is off).
+    """
+    L = ms.L
+
+    def indicator(obs, ok):
+        # column L parks the empty observation slots
+        ind = torch.zeros((obs.shape[0], L + 1), dtype=torch.float32, device=obs.device)
+        ind.scatter_(1, torch.where(ok, obs, L).to(torch.int64), 1.0)
+        return ind[:, :L]
+
+    obs = ms.obs_lm[kf_set]
+    ind_w = indicator(obs, (obs >= 0) & ms.kf_feat_valid[kf_set])
+    ind_all = indicator(ms.obs_lm, (ms.obs_lm >= 0) & ms.kf_feat_valid)
+    counts = (ind_w @ ind_all.T) * ms.kf_valid[None, :]
+    return counts.to(torch.int32)
+
+
 def landmark_scale_band(
     dist: torch.Tensor, level: torch.Tensor, scale: float = 1.2, n_levels: int = 8
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Scale-invariance distance band from the observing level
     (MapPoint::UpdateNormalAndDepth)."""
     max_dist = dist * scale ** level.to(torch.float32)
-    min_dist = max_dist / (scale ** (n_levels - 1))
+    # XLA compiles a division by a constant as a product with its f32 reciprocal
+    min_dist = max_dist * _recip_f32(scale ** (n_levels - 1))
     return min_dist, max_dist
 
 
@@ -151,6 +198,12 @@ def _log_f32(x: float) -> float:
     return float(torch.log(torch.tensor(x, dtype=torch.float32)))
 
 
+def _recip_f32(c: float) -> float:
+    """1 / f32(c) rounded to f32: the constant that XLA multiplies by where
+    the reference divides by the constant c."""
+    return float(np.float32(1.0) / np.float32(c))
+
+
 def predict_level(
     dist: torch.Tensor, max_dist: torch.Tensor, scale: float = 1.2,
     n_levels: int = 8,
@@ -158,5 +211,50 @@ def predict_level(
     """Pyramid level a landmark should appear at from its distance
     (MapPoint::PredictScale)."""
     ratio = torch.clamp(max_dist / torch.clamp(dist, min=1e-6), min=1e-6)
-    lvl = torch.ceil(torch.log(ratio) / _log_f32(scale)).to(torch.int32)
+    lvl = torch.ceil(torch.log(ratio) * _recip_f32(_log_f32(scale))).to(torch.int32)
     return torch.clamp(lvl, 0, n_levels - 1)
+
+
+def compact_keyframes(ms: MapState):
+    """Slide valid keyframes down into the lowest slots, preserving time
+    order, so culled slots become insertable again (slot order is temporal
+    order: the trajectory references rely on it).
+
+    Returns (ms', new_of_old [K] int32 -- new slot per old slot, K for
+    culled/invalid -- and n_valid, a 0-d tensor).
+    """
+    K = ms.K
+    dev = ms.kf_valid.device
+    valid = ms.kf_valid
+    new_of_old = torch.where(valid, torch.cumsum(valid, 0) - 1, K)
+    # slot K of old_of_new parks the invalid slots' writes
+    old_of_new = torch.zeros((K + 1,), dtype=torch.int64, device=dev)
+    old_of_new[new_of_old] = torch.arange(K, device=dev)
+    src = old_of_new[:K]
+    n_valid = torch.sum(valid)
+    mask = torch.arange(K, device=dev) < n_valid
+
+    def take(a, fill=0):
+        m = mask.reshape((K,) + (1,) * (a.dim() - 1))
+        # a 0-d fill of a's own type (a Python 0 would promote bool to int)
+        return torch.where(m, a[src], torch.full((), fill, dtype=a.dtype, device=dev))
+
+    # landmark birth keyframes (used only to group "new" landmarks for
+    # fusion) follow their keyframe; culled parents collapse to slot 0
+    first_new = new_of_old[torch.clamp(ms.lm_first_kf, 0, K - 1).to(torch.int64)]
+    eye = torch.eye(3, dtype=ms.kf_R_cw.dtype, device=dev)
+    return ms._replace(
+        kf_R_cw=torch.where(mask[:, None, None], ms.kf_R_cw[src], eye),
+        kf_t_cw=take(ms.kf_t_cw),
+        kf_valid=mask,
+        kf_time=take(ms.kf_time),
+        kf_xy=take(ms.kf_xy),
+        kf_level=take(ms.kf_level),
+        kf_angle=take(ms.kf_angle),
+        kf_desc=take(ms.kf_desc),
+        kf_ur=take(ms.kf_ur, -1.0),
+        kf_uvr=take(ms.kf_uvr, -1.0),
+        kf_feat_valid=take(ms.kf_feat_valid),
+        obs_lm=take(ms.obs_lm, -1),
+        lm_first_kf=torch.clamp(first_new, 0, K - 1).to(torch.int32),
+    ), new_of_old.to(torch.int32), n_valid

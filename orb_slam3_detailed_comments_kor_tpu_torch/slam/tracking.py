@@ -1,8 +1,10 @@
-"""Stereo tracking step: project-match-optimize, keyframe insertion.
+"""Stereo tracking step: project-match-optimize, keyframe insertion, and
+the mapping steps the SLAM loop runs between frames.
 
 Port of ``TrackResult``, ``_project_landmarks``, ``track_frame``,
-``update_landmark_stats``, ``make_keyframe`` and ``full_frame_step`` from
-``orb_slam3_detailed_comments_kor_tpu/slam/tracking.py``.
+``update_landmark_stats``, ``make_keyframe``, ``full_frame_step``,
+``local_ba_step``, ``cull_landmarks`` and ``cull_redundant_keyframes``
+from ``orb_slam3_detailed_comments_kor_tpu/slam/tracking.py``.
 
 ``full_frame_step`` is the main path: stereo ORB front-end, a three-stage
 project → match → motion-only BA, landmark stats and the motion model.
@@ -18,7 +20,7 @@ import torch
 
 from orb_slam3_detailed_comments_kor_tpu_torch.models import camera as cam_mod
 from orb_slam3_detailed_comments_kor_tpu_torch.ops import matching
-from orb_slam3_detailed_comments_kor_tpu_torch.optim import ba
+from orb_slam3_detailed_comments_kor_tpu_torch.optim import ba, factors
 from orb_slam3_detailed_comments_kor_tpu_torch.slam import frontend as fe
 from orb_slam3_detailed_comments_kor_tpu_torch.slam import map_state as msx
 from orb_slam3_detailed_comments_kor_tpu_torch.slam.frontend import Frame
@@ -113,7 +115,8 @@ def track_frame(
     normal_v = ms.lm_normal[sel_l]
     mind_v = ms.lm_min_dist[sel_l]
     maxd_v = ms.lm_max_dist[sel_l]
-    inv_sigma2_feat = 1.0 / (scale ** (2.0 * frame.level.to(torch.float32)))
+    # 1 / scale ** (2 level), in the form XLA compiles it to: scale ** (-2 level)
+    inv_sigma2_feat = scale ** (-2.0 * frame.level.to(torch.float32))
 
     def stage(R, t, radius, max_dist, rounds, iters):
         uv, lvl, vis = _visibility(
@@ -240,18 +243,22 @@ def make_keyframe(
     """Insert a keyframe + spawn stereo landmarks for unmatched close
     features. lm_feat [L] is the tracking association (feature idx or -1).
 
-    Unlike the reference's scatter at tracking.py:481-487, whose duplicate
-    writes to feature 0 leave its result to the scatter order, unmatched
-    landmarks write to a parking slot, so a landmark matched to feature 0
-    always keeps it.
+    The association is inverted as the reference inverts it
+    (tracking.py:476-487): every unmatched landmark writes "no match" to
+    feature 0, and the last write to a feature wins (``scatter_last``), so
+    feature 0 keeps a match only when no unmatched landmark comes after
+    the matched one, as on the reference's CPU.
     """
     N = frame.n
     L = ms.L
     dev = frame.xy.device
     # invert landmark→feature into feature→landmark
-    tgt = torch.where(lm_feat >= 0, lm_feat, N)
+    tgt = torch.clamp(lm_feat, min=0)
     lm_ids = torch.arange(L, dtype=torch.int32, device=dev)
-    feat_lm = msx.scatter_drop(torch.full((N,), -1, dtype=torch.int32, device=dev), tgt, lm_ids)
+    feat_lm = msx.scatter_last(torch.full((N,), -1, dtype=torch.int32, device=dev), tgt,
+                               torch.where(lm_feat >= 0, lm_ids, -1))
+    matched = msx.scatter_last(torch.zeros((N,), dtype=torch.bool, device=dev), tgt, lm_feat >= 0)
+    feat_lm = torch.where(matched, feat_lm, -1)
 
     # ---- new landmarks from stereo depth --------------------------------
     # close points always spawn; if fewer than 100 are close, spawn the 100
@@ -293,6 +300,8 @@ def make_keyframe(
     # ---- write the keyframe slot ----------------------------------------
     def row(arr, val):
         arr = arr.clone()
+        if not isinstance(val, torch.Tensor):  # a host value would be copied over and waited for
+            val = torch.full((), val, dtype=arr.dtype, device=dev)
         arr[kf_idx] = val
         return arr
 
@@ -310,3 +319,165 @@ def make_keyframe(
         kf_feat_valid=row(ms.kf_feat_valid, frame.valid),
         obs_lm=row(ms.obs_lm, feat_lm),
     )
+
+
+def _top_k_stable(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k largest entries, the lower index first among equal
+    values (``jax.lax.top_k``'s order; ``torch.topk`` promises none)."""
+    return torch.sort(x, descending=True, stable=True).indices[:k]
+
+
+def local_ba_step(
+    ms: msx.MapState,
+    center_kf: int,
+    cam_params: torch.Tensor,
+    bf: float,
+    window: int = 8,
+    lm_cap: int = 4096,
+    iters: int = 8,
+    scale: float = 1.2,
+    cam_model: str = "pinhole",
+    rig=None,
+) -> msx.MapState:
+    """Covisibility-window local BA with landmark compaction.
+
+    Picks the ``window`` most-covisible keyframes of ``center_kf`` (a
+    Python int, plus itself), compacts their observed landmarks into a
+    static ``lm_cap`` block, runs Schur-LM BA with the oldest window
+    keyframe fixed, and scatters the refined poses/points back into the
+    map. Nothing here reads the device.
+
+    The refined points go back as the reference scatters them: every unused
+    slot of the block writes landmark 0's old position to landmark 0 after
+    the used slots, and the last write wins (``scatter_last``), so landmark
+    0 keeps its position whenever the block has an unused slot.
+    """
+    if rig is not None:
+        raise NotImplementedError("camera rigs are not ported")
+    K, N, L = ms.K, ms.N, ms.L
+    dev = ms.lm_pos.device
+    center = torch.arange(center_kf, center_kf + 1, device=dev)
+    cov = msx.covisibility_weights(ms, center)[0]  # [K]
+    cov = torch.where(torch.arange(K, device=dev) == center_kf, 1 << 20, cov)  # center first
+    cov = torch.where(ms.kf_valid, cov, -1)
+    win = _top_k_stable(cov, window)  # [W] kf indices (desc covis)
+    win_valid = cov[win] > 0
+
+    # fix the oldest valid kf in the window (gauge anchor)
+    win_times = torch.where(win_valid, ms.kf_time[win], float("inf"))
+    anchor = torch.argmin(win_times)
+    ww = torch.arange(window, device=dev)
+    fixed_pose = (ww == anchor) | ~win_valid
+    # single-KF maps: everything fixed -> no-op BA; guard by freeing slot 0
+    n_free = torch.sum(~fixed_pose)
+    fixed_pose = torch.where(n_free == 0, fixed_pose & (ww != 0), fixed_pose)
+
+    # ---- landmark window compaction -------------------------------------
+    obs_rows = ms.obs_lm[win]              # [W,N]
+    feat_ok = ms.kf_feat_valid[win] & (obs_rows >= 0) & win_valid[:, None]
+    lm_hit = torch.zeros((L + 1,), dtype=torch.bool, device=dev)  # slot L parks
+    lm_hit.index_fill_(0, torch.where(feat_ok, obs_rows, L).reshape(-1).to(torch.int64), True)
+    lm_hit = lm_hit[:L] & ms.lm_valid
+    local_of_global = torch.where(lm_hit, torch.cumsum(lm_hit, 0) - 1, lm_cap)
+    overflow = local_of_global >= lm_cap
+    local_of_global = torch.where(overflow, lm_cap, local_of_global)
+    # slot lm_cap of both parks the landmarks outside the block
+    global_of_local = torch.zeros((lm_cap + 1,), dtype=torch.int64, device=dev)
+    global_of_local[local_of_global] = torch.arange(L, device=dev)
+    lm_used = torch.zeros((lm_cap + 1,), dtype=torch.bool, device=dev)
+    lm_used[local_of_global] = lm_hit & ~overflow
+    gol, used = global_of_local[:lm_cap], lm_used[:lm_cap]
+    X_local = ms.lm_pos[gol]
+
+    # ---- flat observation table -----------------------------------------
+    lm_local = local_of_global[torch.clamp(obs_rows, min=0).to(torch.int64)]  # [W,N]
+    obs_valid = feat_ok & (lm_local < lm_cap)
+    kf_col = ww[:, None].expand(window, N)
+    inv_s2 = scale ** (-2.0 * ms.kf_level[win].to(torch.float32))  # as XLA compiles 1 / scale ** (2 level)
+    obs = factors.Observations(
+        kf=kf_col.reshape(-1),
+        lm=torch.clamp(lm_local, 0, lm_cap - 1).reshape(-1),
+        uv=ms.kf_xy[win].reshape(-1, 2),
+        u_right=ms.kf_ur[win].reshape(-1),
+        inv_sigma2=inv_s2.reshape(-1),
+        valid=obs_valid.reshape(-1),
+    )
+    res = ba.bundle_adjust(
+        ms.kf_R_cw[win], ms.kf_t_cw[win], X_local, obs, fixed_pose, ~used,
+        cam_params, bf, iters=iters, cam_model=cam_model,
+    )
+
+    # ---- scatter back ----------------------------------------------------
+    upd_pose = win_valid & ~fixed_pose
+    kf_R_cw, kf_t_cw, obs_lm = ms.kf_R_cw.clone(), ms.kf_t_cw.clone(), ms.obs_lm.clone()
+    kf_R_cw[win] = torch.where(upd_pose[:, None, None], res.R_cw, ms.kf_R_cw[win])
+    kf_t_cw[win] = torch.where(upd_pose[:, None], res.t_cw, ms.kf_t_cw[win])
+    lm_pos = msx.scatter_last(ms.lm_pos, gol, torch.where(used[:, None], res.X, X_local))
+    # Drop observations BA marked as clear outliers: only at 4x the chi2
+    # gate (the fixed-iteration f32 LM may not have converged), and never
+    # below a floor of 30 observations per keyframe (an obs-less keyframe
+    # floats free and corrupts later windows).
+    delta2 = torch.where(obs.u_right >= 0, 7.815, 5.991)
+    egregious2d = (obs.valid & (res.chi2 > 4.0 * delta2)).view(window, N)
+    would_keep = torch.sum(obs.valid.view(window, N) & ~egregious2d, dim=1)
+    allow_drop = (would_keep >= 30)[:, None]
+    new_rows = torch.where(egregious2d & allow_drop, -1, obs_rows)
+    obs_lm[win] = torch.where(win_valid[:, None], new_rows, obs_rows)
+    return ms._replace(kf_R_cw=kf_R_cw, kf_t_cw=kf_t_cw, lm_pos=lm_pos, obs_lm=obs_lm)
+
+
+def _observer_counts(obs_lm, ok, L):
+    """Per landmark, the number of observations where ``ok``: [L] int32."""
+    return torch.zeros((L,), dtype=torch.int32, device=obs_lm.device).index_add_(
+        0, torch.clamp(obs_lm, min=0).reshape(-1).to(torch.int64),
+        ok.reshape(-1).to(torch.int32),
+    )
+
+
+def cull_landmarks(ms: msx.MapState) -> msx.MapState:
+    """Found-ratio culling (LocalMapping::MapPointCulling semantics) plus
+    orphan collection: a landmark with no surviving keyframe observation
+    can never be optimized or culled by the ratio test again, so it would
+    hold its pool slot forever. Observation rows pointing at a culled
+    landmark are cleared too, so that a recycled slot is never aliased."""
+    ratio = ms.lm_found / torch.clamp(ms.lm_visible, min=1)
+    bad = ms.lm_valid & (ms.lm_visible >= 4) & (ratio < 0.25)
+    obs_ok = (ms.obs_lm >= 0) & ms.kf_feat_valid & ms.kf_valid[:, None]
+    n_obs = _observer_counts(ms.obs_lm, obs_ok, ms.L)
+    bad = bad | (ms.lm_valid & (n_obs == 0))
+    stale = bad[torch.clamp(ms.obs_lm, min=0).to(torch.int64)] & (ms.obs_lm >= 0)
+    return ms._replace(
+        lm_valid=ms.lm_valid & ~bad,
+        obs_lm=torch.where(stale, -1, ms.obs_lm),
+    )
+
+
+def cull_redundant_keyframes(
+    ms: msx.MapState,
+    protect: torch.Tensor,
+    max_cull: int = 1,
+    redundancy: float = 0.9,
+) -> msx.MapState:
+    """Redundant-keyframe culling (LocalMapping::KeyFrameCulling): a
+    keyframe whose landmarks are more than ``redundancy`` observed by >= 3
+    other keyframes is removed (marked invalid, observations cleared).
+
+    protect [K] bool: keyframes that must never be culled. Up to
+    ``max_cull`` keyframes are removed per call, the lowest slot first; the
+    observer counts are recomputed after each removal.
+    """
+    K, L = ms.K, ms.L
+    kk = torch.arange(K, device=ms.kf_valid.device)
+    kf_valid, obs_lm = ms.kf_valid, ms.obs_lm
+    for _ in range(max_cull):
+        ok = (obs_lm >= 0) & ms.kf_feat_valid & kf_valid[:, None]
+        n_obs = _observer_counts(obs_lm, ok, L)
+        well_observed = n_obs[torch.clamp(obs_lm, min=0).to(torch.int64)] >= 4  # self + 3 others
+        red = torch.sum(well_observed & ok, dim=1)
+        tot = torch.clamp(torch.sum(ok, dim=1), min=1)
+        redundant = kf_valid & ~protect & (red.to(torch.float32) / tot > redundancy)
+        # argmax of the mask as int: the first redundant slot (or 0)
+        cull = (kk == torch.argmax(redundant.to(torch.int32))) & torch.any(redundant)
+        kf_valid = kf_valid & ~cull
+        obs_lm = torch.where(cull[:, None], -1, obs_lm)
+    return ms._replace(kf_valid=kf_valid, obs_lm=obs_lm)

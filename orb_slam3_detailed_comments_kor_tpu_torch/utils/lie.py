@@ -1,7 +1,7 @@
 """SO(3) / SE(3) Lie-group operations on torch tensors.
 
 Port of ``orb_slam3_detailed_comments_kor_tpu/utils/lie.py`` (the functions
-the stereo tracking step uses). Same conventions: rotations are 3x3
+the stereo tracking step and the stereo SLAM loop use). Same conventions: rotations are 3x3
 matrices; SE(3) is (R, t) acting as x -> R @ x + t; ``T_ab`` maps b-frame
 points to the a-frame. Small-angle branches are ``torch.where`` selections,
 so nothing here reads a value back to the host.
@@ -172,3 +172,14 @@ def se3_inverse(R, t):
 def se3_compose(Ra, ta, Rb, tb):
     """T_a ∘ T_b = (Ra Rb, Ra tb + ta)."""
     return Ra @ Rb, _mv(Ra, tb) + ta
+
+
+def se3_rel(Ra, ta, Rb, tb):
+    """T_a ∘ T_b⁻¹."""
+    Ri, ti = se3_inverse(Rb, tb)
+    return se3_compose(Ra, ta, Ri, ti)
+
+
+# The reference jits se3_compose into one dispatch for its host-side pose
+# bookkeeping (keyframe save/restore); eager torch needs no separate form.
+se3_compose_j = se3_compose

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card, and the SLAM loop on the card against the CPU.
 
 Marked ``cuda``: each test skips where there is no CUDA device (this file
 imports no jax, so it also runs where jax is not installed). On a GPU
@@ -6,9 +7,11 @@ machine, from the repository root:
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
 
-Every comparison is exact: the kernels compute the same integer and
-float operations in the same order as the plain versions. The edge cases
-are ``chip_smoke.py``'s, which checks the same ones on every run.
+Every kernel comparison is exact: the kernels compute the same integer
+and float operations in the same order as the plain versions. The edge
+cases are ``chip_smoke.py``'s, which checks the same ones on every run.
+The loop tests are chip_smoke.py phase 5 at 8 frames (poses within its
+TRANS_TOL and ROT_TOL) and a local-BA slice under the sync debug mode.
 """
 
 import pytest
@@ -86,3 +89,42 @@ def test_masked_best2_kernel(dev, n, m, offset):
         torch.cuda.synchronize()
         for x, y in zip(got, ref):
             assert torch.equal(x, y)
+
+
+def test_slam_loop_card_matches_cpu(dev):
+    # chip_smoke.py phase 5 at 8 frames: the small loop on the card and on
+    # the CPU inserts keyframes at the same frames and agrees per frame
+    cpu = torch.device("cpu")
+    cfg = chip_smoke.loop_config(small=True)
+    _, frames = chip_smoke.render_loop_sequence(cfg, 8, cpu)
+    card, kf_card = chip_smoke.run_loop(cfg, [(a.to(dev), b.to(dev)) for a, b in frames], dev)
+    host, kf_host = chip_smoke.run_loop(cfg, frames, cpu)
+    assert kf_card == kf_host and len(kf_card) >= 3
+    assert card.stats == host.stats
+    d_c, d_r = chip_smoke.trajectory_diff(card.trajectory_arrays(), host.trajectory_arrays())
+    assert d_c.max() <= chip_smoke.TRANS_TOL and d_r.max() <= chip_smoke.ROT_TOL
+
+
+def test_local_ba_slice_never_syncs(dev):
+    # one local-BA slice of the small loop, run under the sync debug mode:
+    # no call in it may wait on the device
+    import warnings
+
+    cfg = chip_smoke.loop_config(small=True)
+    _, frames = chip_smoke.render_loop_sequence(cfg, 8, dev)
+    slam, _ = chip_smoke.run_loop(cfg, frames[:5], dev)
+    kinds = [k for k, _ in slam._bg_queue]
+    assert "local_ba_chunk" in kinds, kinds
+    fn = dict(slam._bg_queue)["local_ba_chunk"]
+    before = slam.ms.kf_t_cw.clone()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message) for w in caught if "synchroniz" in str(w.message)]
+    assert not syncs, syncs
+    assert not torch.equal(slam.ms.kf_t_cw, before)  # the slice moved the window

@@ -28,6 +28,8 @@ SLICE_MODULES = [
     "ops.matching", "ops.cuda_matching", "ops.stereo", "slam.frontend",
     "optim.factors", "optim.ba", "slam.map_state", "slam.tracking",
     "io.synthetic",
+    # the stereo SLAM loop
+    "slam.map_merging", "slam.system", "eval.ate", "io.trajectory", "utils.timing",
 ]
 
 
@@ -93,7 +95,7 @@ def test_config_fields_equal(name):
 @pytest.mark.parametrize(
     "module,name",
     [("slam.map_state", "empty_map"), ("io.synthetic", "default_scene"),
-     ("models.camera", "camera_params_from_config")],
+     ("models.camera", "camera_params_from_config"), ("slam.system", "SlamSystem")],
 )
 def test_entry_points_default_to_cuda(module, name):
     """Entry points that make tensors from nothing put them on the card
