@@ -33,7 +33,8 @@ Phase 2  the main path: renders 21 strafe frames on the card, initialises the
 Phase 3  tracks frame 1 again on the CPU (plain versions) from the same map
          and checks that the card and the CPU agree.
 Phase 4  the SLAM loop at bench scale: ``slam.system.SlamSystem`` (loop
-         closing off) over bench.py's 130-frame strafe sequence, rendered on
+         closing set off, as in the JAX reference run that REF_ATE_M comes
+         from) over bench.py's 130-frame strafe sequence, rendered on
          the card, after a warm-up system over its first frames. Blocks on
          each frame's pose (bench.py's latency pass) and prints frame wall
          p50/p99 (frames 5-129), frames/s, the ATE, the keyframes, the peak
@@ -45,11 +46,30 @@ Phase 4  the SLAM loop at bench scale: ``slam.system.SlamSystem`` (loop
          services a fusion slice make no synchronizing call outside the
          batched decision read, and the ATE is at most the JAX reference's
          (REF_ATE_M) plus 5 mm.
-Phase 5  the card against the CPU for the loop: the small configuration
-         (240x376, 600 features, 8 keyframe slots) over 16 frames with
-         decision_batch=1 on both; keyframes must be inserted at the same
-         frames, camera centres agree within TRANS_TOL and rotations within
-         ROT_TOL.
+Phase 5  the card against the CPU for the loop (loop closing on, the
+         default): the small configuration (240x376, 600 features, 8
+         keyframe slots) over 16 frames with decision_batch=1 on both;
+         keyframes must be inserted at the same frames, camera centres
+         agree within TRANS_TOL and rotations within ROT_TOL.
+Phase 6  the loop-closure pass at bench scale (bench.py's
+         ``bench_loop_latency``): the same SlamSystem with loop closing on
+         over bench.py's 150-frame out-and-back sequence, rendered on the
+         card, with bench.py's drift injected at frame 80 after a decision
+         flush, after a warm-up pass over the same sequence. Blocks on each
+         frame's pose and prints the loops closed (keyframe, candidate,
+         source), GBA chunks, ATE, frame wall p50/p99 (frames 5-149), the
+         correction frame's wall time, the device ms of one BoW insert, one
+         detection, one GBA chunk and the correction, the host reads of
+         every loop and GBA frame, the card-to-card spread of one GBA
+         chunk, each kernel's launches over the pass and the peak memory.
+         It fails unless the closures equal the JAX reference's (REF_LOOP),
+         the final state is OK, the ATE is at most the reference's plus 5
+         mm, and no frame makes a host read beyond the reference's own
+         (one per verification, hypothesis step and drift-gate check, two
+         per correction, one per GBA chunk, two per relocalization search
+         and per candidate tried). ``masked_best2`` is then held
+         exactly to its plain version at the inputs of each hypothesis
+         refinement of the pass (one device kernel per call), and timed.
 
 The last stdout line is {"ok": true, "device": {...}}; the line before it
 lists every kernel with its launches, error, times and bound, and the
@@ -100,6 +120,26 @@ ATE_MARGIN = 0.005
 MIN_LOOP_KF = 10
 SMALL_LOOP_FRAMES = 16
 SLEEP_MS = 400  # the sleep kernel that a slice call must return before
+# Phase 6: bench.py's loop-closure latency pass (``bench_loop_latency``):
+# bench.py's stereo configuration, its 150-frame out-and-back sequence at
+# 0.045 m/frame, loop closing on, bench.py's drift (``_inject_drift``: mag
+# 0.35, yaw 0.03) injected at frame 80 after flushing the decisions.
+LOOP6_FRAMES, LOOP6_INJECT_AT, LOOP6_SPEED = 150, 80, 0.045
+# The small loop-closure pass of the tests (loop_config(small=True,
+# closure=True)): 84 out-and-back frames at 0.05 m/frame, the same drift at
+# the turn, and a loop-closer keyframe gap of 3 (the default 10 needs a
+# longer run); both packages close one loop at (keyframe 11, candidate 3).
+SMALL_CLOSURE = dict(frames=84, speed=0.05, inject_at=42, min_gap=3)
+# The JAX reference (orb_slam3_detailed_comments_kor_tpu.slam.system.
+# SlamSystem, its defaults) on this configuration and sequence, run on a CPU
+# with asynchronous dispatch off by tools/jax_loop_closure_ref.py: one loop
+# closed at keyframe 17 against candidate 4 (20.07 deg, 0.054 m; accepted by
+# hypothesis refinement) by the loop slice serviced at frame 146; 3 GBA
+# chunks, 2 hypothesis steps, 2 verifications; 18 keyframes, final state
+# OK, 2653 landmarks; ATE over all 150 frames 0.069941 m.
+REF_LOOP = dict(closures=[(17, 4)], source="hyp", corrected_at_frame=146, gba_chunks=3,
+                hypothesis_steps=2, verifications=2, keyframes=18,
+                ate_m=0.06994095752781777)
 # H100 SXM (NVIDIA data sheet, 700 W): HBM3 at 3.35 TB/s, and 67 TFLOP/s
 # fp32 on the CUDA cores, which counts an FMA as two: 33.5 T fp32
 # instructions/s (132 SMs x 128 lanes x 1.98 GHz), also the rate at which
@@ -139,6 +179,12 @@ GATHER_EDGE_CASES = ((300, 128, 97, 48, 45, "int64", "int32"), (300, 131, 97, 48
                      (200, 131, 5, 11, 21, "int64", "int64"), (200, 128, 1, 11, 21, "int32", "int64"),
                      (60, 131, 0, 48, 45, "int32", "int32"), (48, 45, 7, 48, 45, "int64", "int64"),
                      (40, 128, 33, 40, 3, "int32", "int32"))
+
+
+# the warning torch.cuda.set_sync_debug_mode("warn") gives at each call
+# that waits on the device (the mode's own one-time notice that it is a
+# prototype is not one)
+SYNC_WARNING = "called a synchronizing CUDA operation"
 
 
 def log(*a):
@@ -333,31 +379,33 @@ def gather_edge_inputs(R, W, K, ph, pw, row_type, col_type, dev):
     return torch.from_numpy(img).to(dev), as_t(rows, row_type), as_t(cols, col_type), ph, pw
 
 
-def device_kernels(fn):
+def device_kernels(fn, attempts=3):
     """Names of the device activities (kernels, copies, fills) that one call
     of ``fn()`` puts on the card, as torch.profiler's CUDA activity records
     them. An empty kernel before and one after bracket the call, each a few
     host milliseconds apart: the profiler can drop a short kernel at the
     edge of its capture window, so it must report both brackets, and what
-    lies between them is the call's."""
+    lies between them is the call's. A capture that lost a bracket is
+    taken again, up to ``attempts`` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from orb_slam3_detailed_comments_kor_tpu_torch.ops import _cuda
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for f in (_cuda.noop, fn, _cuda.noop):
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for f in (_cuda.noop, fn, _cuda.noop):
+                time.sleep(0.005)
+                f()
+                torch.cuda.synchronize()
             time.sleep(0.005)
-            f()
-            torch.cuda.synchronize()
-        time.sleep(0.005)
-    on_device = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                       key=lambda e: e.time_range.start)
-    names = [e.name for e in on_device]
-    if len(names) < 2 or "noop_kernel" not in names[0] or "noop_kernel" not in names[-1]:
-        raise AssertionError(f"the profiler did not record the empty kernels around the call: {names}")
-    return names[1:-1]
+        on_device = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                           key=lambda e: e.time_range.start)
+        names = [e.name for e in on_device]
+        if len(names) >= 2 and "noop_kernel" in names[0] and "noop_kernel" in names[-1]:
+            return names[1:-1]
+    raise AssertionError(f"the profiler did not record the empty kernels around the call: {names}")
 
 
 def build_baseline(csrc):
@@ -442,12 +490,16 @@ def step(ms, il, ir, state, cam):
     )
 
 
-def loop_config(small=False):
+def loop_config(small=False, closure=False):
     """The port's SLAMConfig of the SLAM loop: bench.py's stereo setup, or
     (small) the 240x376 / 600-feature geometry of tests/test_slam_e2e.py
     with 8 keyframe slots (so capacity reclaim runs), a keyframe every
     second frame (kf_ref_ratio 0.5, so that the frame gap decides every
-    insertion) and synchronous decisions."""
+    insertion) and synchronous decisions. ``closure`` (with ``small``):
+    the small loop-closure pass (SMALL_CLOSURE) -- 32 keyframe slots, a
+    keyframe at least every 7 frames, so that a keyframe's mapping and loop
+    slices drain before the next one and its BoW row is in the database
+    when its detection runs, and synchronous decisions."""
     from orb_slam3_detailed_comments_kor_tpu_torch.config import (
         CameraConfig, CapacityConfig, ORBConfig, SLAMConfig, SensorType, TrackingConfig,
     )
@@ -459,8 +511,10 @@ def loop_config(small=False):
             camera=CameraConfig(width=w, height=h, fx=fx, fy=fx, cx=w / 2.0, cy=h / 2.0,
                                 bf=BASELINE * fx, th_depth=35.0),
             orb=ORBConfig(n_features=600, cell_size=24),
-            capacity=CapacityConfig(max_keyframes=8, max_landmarks=4096, max_local_landmarks=2048),
-            tracking=TrackingConfig(max_frames_between_kf=2, kf_ref_ratio=0.5, decision_batch=1),
+            capacity=CapacityConfig(max_keyframes=32 if closure else 8, max_landmarks=4096,
+                                    max_local_landmarks=2048),
+            tracking=(TrackingConfig(max_frames_between_kf=7, decision_batch=1) if closure else
+                      TrackingConfig(max_frames_between_kf=2, kf_ref_ratio=0.5, decision_batch=1)),
         )
     return SLAMConfig(
         sensor=SensorType.STEREO,
@@ -471,32 +525,73 @@ def loop_config(small=False):
     )
 
 
-def render_loop_sequence(cfg, n, dev):
-    """The strafe sequence at ``cfg``'s camera on ``dev``: ground-truth
-    centres [n, 3] (numpy) and n stereo pairs."""
+def render_loop_sequence(cfg, n, dev, motion="strafe", speed=SPEED):
+    """The ``motion`` sequence (strafe, or outback: out and back along x)
+    at ``cfg``'s camera on ``dev``: ground-truth centres [n, 3] (numpy)
+    and n stereo pairs."""
     from orb_slam3_detailed_comments_kor_tpu_torch.io import synthetic
 
     c = cfg.camera
     cam = torch.tensor([c.fx, c.fy, c.cx, c.cy], dtype=torch.float32, device=dev)
     scene = synthetic.default_scene(dev)
-    Rs, ts = synthetic.make_trajectory(n, "strafe", speed=SPEED)
+    Rs, ts = synthetic.make_trajectory(n, motion, speed=speed)
     frames = [synthetic.stereo_pair(cam, torch.from_numpy(Rs[i]).to(dev), torch.from_numpy(ts[i]).to(dev),
                                     BASELINE, scene, h=c.height, w=c.width)[:2] for i in range(n)]
     return ts, frames
 
 
-def run_loop(cfg, frames, dev, on_frame=None, timer=False):
+def inject_drift(slam, mag=0.35, yaw=0.03):
+    """bench.py's ``_inject_drift`` on the port's map: the newest third of
+    the keyframes, their landmarks and the live pose warped by a rigid
+    drift; late keyframes' observations of early landmarks cleared, so the
+    drifted submap is self-consistent and covisibility-disconnected from
+    the early map (the state a long drifting circuit leaves)."""
+    from orb_slam3_detailed_comments_kor_tpu_torch.utils import lie
+
+    ms = slam.ms
+    cut = 2 * slam.n_kf // 3
+    K = ms.K
+    dev = ms.kf_t_cw.device
+    R_d, t_d = lie.se3_exp(torch.tensor([0.0, yaw, 0.0, mag * 0.7, mag * 0.7, 0.0], device=dev))
+    Rd_i, td_i = lie.se3_inverse(R_d, t_d)
+    late_kf = torch.arange(K, device=dev) >= cut
+    R_new, t_new = lie.se3_compose(ms.kf_R_cw, ms.kf_t_cw, Rd_i.expand(K, 3, 3), td_i.expand(K, 3))
+    late_lm = ms.lm_valid & (ms.lm_first_kf >= cut)
+    X_new = ms.lm_pos @ R_d.T + t_d
+    early_lm_obs = (ms.obs_lm >= 0) & (ms.lm_first_kf[torch.clamp(ms.obs_lm, min=0).long()] < cut)
+    clear = late_kf[:, None] & early_lm_obs
+    slam.ms = ms._replace(
+        kf_R_cw=torch.where(late_kf[:, None, None], R_new, ms.kf_R_cw),
+        kf_t_cw=torch.where(late_kf[:, None], t_new, ms.kf_t_cw),
+        lm_pos=torch.where(late_lm[:, None], X_new, ms.lm_pos),
+        obs_lm=torch.where(clear, -1, ms.obs_lm),
+    )
+    slam.R_cw, slam.t_cw = lie.se3_compose(slam.R_cw, slam.t_cw, Rd_i, td_i)
+    slam.has_velocity = False
+
+
+def run_loop(cfg, frames, dev, on_frame=None, timer=False, loop_closing=True, inject_at=None,
+             min_gap=None):
     """Feed ``frames`` to a new SlamSystem on ``dev``. ``on_frame(i, slam,
     call)`` may wrap each frame's ``call()``; ``timer`` turns on the
-    system's host stage timer. Returns (slam, the frames at which a
-    keyframe was inserted)."""
+    system's host stage timer; ``loop_closing`` sets
+    ``enable_loop_closing``; at frame ``inject_at`` the deferred decisions
+    are flushed and ``inject_drift`` applied first (bench.py's loop pass);
+    ``min_gap`` overrides the loop closer's keyframe gap. Returns (slam,
+    the frames at which a keyframe was inserted)."""
     from orb_slam3_detailed_comments_kor_tpu_torch.slam.system import SlamSystem
     from orb_slam3_detailed_comments_kor_tpu_torch.utils.timing import StageTimer
 
     slam = SlamSystem(cfg, device=dev)
     slam.timer = StageTimer(enabled=timer)
+    slam.enable_loop_closing = loop_closing
+    if min_gap is not None:
+        slam.loop_closer.min_gap = min_gap
     kf_at = []
     for i, (il, ir) in enumerate(frames):
+        if i == inject_at:
+            slam.flush_decisions()
+            inject_drift(slam)
         n0 = slam.stats["kf_inserted"]
         call = lambda _i=i, _l=il, _r=ir: slam.track_stereo(_l, _r, _i / FPS)
         on_frame(i, slam, call) if on_frame else call()
@@ -530,6 +625,309 @@ def rotation_angle(Ra, Rb):
     M = Ra.double().T @ Rb.double()
     skew = torch.stack([M[2, 1] - M[1, 2], M[0, 2] - M[2, 0], M[1, 0] - M[0, 1]])
     return float(torch.asin(torch.clamp(torch.linalg.vector_norm(skew) / 2.0, max=1.0)))
+
+
+def run_checks(checks, counters, per_kernel, base_lib=None):
+    """Hold each kernel against its plain version on each case of
+    ``checks`` (exact equality, one launch per call) and, for a timed case,
+    check that one wrapper call puts exactly one device kernel on the
+    stream and time the kernel, the plain version and the library call.
+    Results go into ``per_kernel[name]``."""
+    for key, case, kern, plain, args_, bnd, library in checks:
+        before = counters[key].launches
+        out_k = kern(*args_)
+        torch.cuda.synchronize()
+        # one launch per call; a gather of no keypoints launches nothing
+        want = 0 if key == "gather_patches" and args_[1].shape[0] == 0 else 1
+        if counters[key].launches - before != want:
+            raise AssertionError(f"{key} {case}: {counters[key].launches - before} launches, expected {want}")
+        out_p = plain(*args_)
+        torch.cuda.synchronize()
+        for x, y in zip(*((o,) if isinstance(o, torch.Tensor) else o for o in (out_k, out_p))):
+            if x.shape != y.shape or x.dtype != y.dtype:
+                raise AssertionError(f"{key} {case}: kernel gives {x.dtype} {tuple(x.shape)}, "
+                                     f"plain version {y.dtype} {tuple(y.shape)}")
+        err = max_abs_err(out_k, out_p)
+        if err != 0.0:
+            raise AssertionError(f"{key} {case}: kernel differs from its plain version (max |err| {err})")
+        if key == "fast_nms" and bnd is None and int((out_p[1] > 0).sum()) < 100:
+            raise AssertionError(f"{key} {case}: too few corners to test anything")
+        entry = per_kernel.setdefault(key, dict(max_abs_err=0.0, cases=[], edge_cases=0))
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        if bnd is None:
+            entry["edge_cases"] += 1
+            log(f"  {key} {case}: exact")
+            continue
+        # the call's device work is its one kernel, so `ms` times the call
+        on_device = device_kernels(lambda: kern(*args_))
+        if len(on_device) != 1:
+            raise AssertionError(f"{key} {case}: one wrapper call put {len(on_device)} device "
+                                 f"activities on the stream, expected its kernel alone: {on_device}")
+        row = dict(case=case, device_kernel=on_device[0], device_kernels=len(on_device), **bnd)
+        if base_lib is not None:  # in turns: baseline, current, current, baseline
+            def base():
+                with launching_from(base_lib):
+                    return kern(*args_)
+
+            if max_abs_err(base(), out_p) != 0.0:
+                raise AssertionError(f"{key} {case}: baseline kernel differs from the plain version")
+            b1, k1, k2, b2 = (device_ms(f) for f in (base, lambda: kern(*args_),
+                                                    lambda: kern(*args_), base))
+            row["ms"] = statistics.median([k1[0], k2[0]])
+            row["ms_range"] = [min(k1[1], k2[1]), max(k1[2], k2[2])]
+            row["baseline_ms"] = statistics.median([b1[0], b2[0]])
+            row["baseline_ms_range"] = [min(b1[1], b2[1]), max(b1[2], b2[2])]
+        else:
+            k = device_ms(lambda: kern(*args_))
+            row["ms"], row["ms_range"] = k[0], [k[1], k[2]]
+        row["plain_ms"] = device_ms(lambda: plain(*args_))[0]
+        row["library_ms"] = None
+        if library is not None:
+            lib_err = max_abs_err(library(), out_p)
+            if lib_err != 0.0:
+                raise AssertionError(f"{key} {case}: the library call differs from the plain version")
+            row["library_ms"] = device_ms(library)[0]
+        entry["cases"].append(row)
+        base_txt = f", baseline {row['baseline_ms']:.4f} ms" if "baseline_ms" in row else ""
+        lib_txt = f", library {row['library_ms']:.4f} ms" if row["library_ms"] is not None else ""
+        log(f"  {key} {case}: exact; kernel {row['ms']:.4f} ms ({row['ms_range'][0]:.4f}-"
+            f"{row['ms_range'][1]:.4f}){base_txt}, plain {row['plain_ms']:.4f} ms{lib_txt}, "
+            f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; bytes {bnd['bytes_ms']:.4f}, "
+            f"ops {bnd['ops_ms']:.4f}) "
+            + " ".join(f"{k} {v}" for k, v in bnd.items() if k.endswith(("_px", "_pairs"))))
+
+
+def loop_closure_pass(cfg, frames, dev, counters):
+    """Phase 6's timed pass: ``frames`` through a new SlamSystem (loop
+    closing on) with bench.py's drift injected at LOOP6_INJECT_AT, blocking
+    on each frame's pose. Every frame runs under the sync debug mode with
+    the batched decision read and the delayed detection read (the pinned
+    copies behind events) left out, so each synchronizing call counted is a
+    host read of a value. Records per frame the slice it serviced, its
+    wall ms, its synchronizing calls and the loop calls in it, the
+    ``masked_best2`` inputs of each hypothesis refinement, the arguments
+    of each correction, and the launches of each kernel over the pass."""
+    from orb_slam3_detailed_comments_kor_tpu_torch.ops import cuda_matching
+    from orb_slam3_detailed_comments_kor_tpu_torch.slam import loop_closing
+    from orb_slam3_detailed_comments_kor_tpu_torch.utils.host_read import HostRead
+
+    rec = dict(frames=[], refine_inputs=[], corrections=[], calls={})
+    cur = {}
+    lc_cls = loop_closing.LoopCloser
+    saved = {n: getattr(lc_cls, n) for n in ("verify", "hypothesis_step", "correct", "gba_chunk")}
+    saved_refine = loop_closing._refine_hyp_core
+    saved_numpy = HostRead.numpy
+    counting = False
+
+    def counted(name):
+        def wrapper(self, *a, **k):
+            cur[name] = cur.get(name, 0) + 1
+            if name == "correct":
+                rec["corrections"].append(dict(ms=a[0], args=a[1:], kwargs=k, frame=cur["frame"]))
+            return saved[name](self, *a, **k)
+        return wrapper
+
+    def refine(*a, **k):
+        # record the matcher's inputs at this call; its launches still count
+        spy_calls = []
+        kern = cuda_matching.fused_masked_best2
+
+        def spy(*args):
+            spy_calls.append(args)
+            return kern(*args)
+
+        spy.launches = 0  # the wrapper counts through its module name: the spy, here
+        cuda_matching.fused_masked_best2 = spy
+        try:
+            return saved_refine(*a, **k)
+        finally:
+            cuda_matching.fused_masked_best2 = kern
+            kern.launches += spy.launches
+            rec["refine_inputs"].extend(spy_calls)
+
+    def unwatched_numpy(self):
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return saved_numpy(self)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+
+    for name in saved:
+        setattr(lc_cls, name, counted(name))
+    loop_closing._refine_hyp_core = refine
+    HostRead.numpy = unwatched_numpy
+
+    def on_frame(i, slam, call):
+        nonlocal counting
+        if not counting:  # count this system's drift-gate and relocalization calls
+            counting = True
+            for name, key in (("_loop_gate_allows", "gate"), ("_relocalize_in", "relocalize_in"),
+                              ("_reloc_attempt", "reloc_attempt")):
+                def counted_method(*a, _fn=getattr(slam, name), _key=key, **k):
+                    cur[_key] = cur.get(_key, 0) + 1
+                    return _fn(*a, **k)
+                setattr(slam, name, counted_method)
+        kind = slam._bg_queue[0][0] if slam._bg_queue else (
+            "gba_chunk" if slam._gba_chunks_left > 0 else "tracking")
+        cur.clear()
+        cur["frame"] = i
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                call()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        slam.t_cw.cpu()  # block on the frame's pose, as bench.py's latency pass does
+        ms_wall = (time.perf_counter() - t0) * 1e3
+        syncs = [str(w.message).splitlines()[0] for w in caught if SYNC_WARNING in str(w.message)]
+        calls = {k: v for k, v in cur.items() if k != "frame"}
+        for k, v in calls.items():
+            rec["calls"][k] = rec["calls"].get(k, 0) + v
+        rec["frames"].append(dict(frame=i, kind=kind, ms=ms_wall, syncs=len(syncs),
+                                  sync_calls=sorted(set(syncs))[:3], calls=calls, state=slam.state))
+
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    try:
+        slam, kf_at = run_loop(cfg, frames, dev, on_frame, timer=True, inject_at=LOOP6_INJECT_AT)
+    finally:
+        for name, fn in saved.items():
+            setattr(lc_cls, name, fn)
+        loop_closing._refine_hyp_core = saved_refine
+        HostRead.numpy = saved_numpy
+    rec["launches"] = {k: fn.launches for k, fn in counters.items()}
+    rec["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    return slam, kf_at, rec
+
+
+def loop_host_read_allowance(calls):
+    """The host reads the reference makes in a frame with these calls: one
+    per verification and per hypothesis step (the inlier count), one per
+    drift-gate check (the pose segment), two per correction (its log line),
+    one per GBA chunk (its cost), and on the lost path two per map searched
+    for relocalization (the BoW scores, the covisibility) and two per
+    candidate tried (the PnP and the guided-tracking inlier counts)."""
+    return (calls.get("verify", 0) + calls.get("hypothesis_step", 0) + calls.get("gate", 0)
+            + 2 * calls.get("correct", 0) + calls.get("gba_chunk", 0)
+            + 2 * calls.get("relocalize_in", 0) + 2 * calls.get("reloc_attempt", 0))
+
+
+def phase6(dev, counters, per_kernel, smi):
+    """Phase 6: bench.py's loop-closure pass at bench scale (see the module
+    docstring). Prints its JSON line, raises on a failed check, holds
+    ``masked_best2`` against its plain version at the hypothesis
+    refinement's recorded inputs (into ``per_kernel``) and returns the
+    pass's record."""
+    from orb_slam3_detailed_comments_kor_tpu_torch.eval import ate
+    from orb_slam3_detailed_comments_kor_tpu_torch.models import vocabulary as voc
+    from orb_slam3_detailed_comments_kor_tpu_torch.ops import cuda_matching
+    from orb_slam3_detailed_comments_kor_tpu_torch.slam import frontend, loop_closing
+    from orb_slam3_detailed_comments_kor_tpu_torch.slam import system as slam_mod
+
+    cfg = loop_config()
+
+    t_p6 = time.time()
+    gt6, frames6 = render_loop_sequence(cfg, LOOP6_FRAMES, dev, "outback", LOOP6_SPEED)
+    voc.load_default(dev)  # the vocabulary's upload, once per process
+    # a warm-up pass over the same injected sequence (bench.py warms its
+    # loop pass the same way); its closures show whether the pass repeats
+    warm, _ = run_loop(cfg, frames6, dev, inject_at=LOOP6_INJECT_AT)
+    warm_closure = list(getattr(warm.loop_closer, "last_closure", ()))
+    del warm
+    torch.cuda.synchronize()
+    log(f"phase 6: rendered {LOOP6_FRAMES} frames and ran a warm-up pass in {time.time() - t_p6:.1f} s")
+    t_pass = time.perf_counter()
+    slam6, kf_at6, rec = loop_closure_pass(cfg, frames6, dev, counters)
+    pass6_s = time.perf_counter() - t_pass
+    lc6 = slam6.loop_closer
+    _, centers6, _ = slam6.trajectory_arrays()
+    ate6 = ate.ate_rmse(centers6, gt6[: len(centers6)])
+    fr = rec["frames"]
+    lat6 = np.array([f["ms"] for f in fr[5:]])
+    closures = [(c["args"][1], c["args"][2]) for c in rec["corrections"]]
+    corr_frames = [c["frame"] for c in rec["corrections"]]
+    reads = [dict(frame=f["frame"], kind=f["kind"], syncs=f["syncs"], allowed=loop_host_read_allowance(f["calls"]),
+                  calls=f["calls"], state=f["state"], sync_calls=f["sync_calls"])
+             for f in fr[1:] if f["syncs"] or f["calls"] or f["kind"] in ("loop", "gba_chunk")]
+    # the matcher at the hypothesis refinement's inputs: exact, one kernel a
+    # call (before the profiler sessions of the slices below)
+    run_checks([("masked_best2", f"{a.shape[0]}x{b.shape[0]} hypothesis refinement (loop pass call {i})",
+                 cuda_matching.fused_masked_best2, cuda_matching.fused_masked_best2_plain, (a, b, m),
+                 matcher_bound(a, b, m), None) for i, (a, b, m) in enumerate(rec["refine_inputs"])],
+               counters, per_kernel)
+    # one slice of each loop kind alone, on the device, with the pass's inputs
+    cam6 = slam6.cam_params
+    frame_last = frontend.process_stereo(*frames6[-1], cfg.camera.bf, n_features=N_FEATURES, cell=CELL)
+    corr = rec["corrections"][0] if rec["corrections"] else None
+    slices6 = {
+        "bow_insert": lambda: loop_closing._add_kf_core(lc6.vocab, frame_last.desc, frame_last.valid),
+        "detection": lambda: loop_closing._detect_core(lc6.db_words, lc6.db_wts, slam6.ms, slam6.n_kf - 1,
+                                                       slam6.n_kf, lc6.min_gap),
+        "gba_chunk": lambda: loop_closing.global_ba(slam6.ms, cam6, cfg.camera.bf, iters=2),
+    }
+    if corr is not None:
+        a = corr["args"]
+        slices6["correction"] = lambda: loop_closing._correct_core(
+            corr["ms"], a[0], a[1], a[2], a[3], a[4], corr["kwargs"]["s_delta"], cam6, cfg.camera.bf,
+            False, corr["kwargs"].get("mode", "se3"))
+    slice6_ms = {k: profiled_device_ms(f) for k, f in slices6.items()}
+    # the card-to-card spread of one GBA slice: two runs on the same inputs
+    (ms_a, cost_a), (ms_b, cost_b) = (loop_closing.global_ba(slam6.ms, cam6, cfg.camera.bf, iters=2)
+                                      for _ in range(2))
+    gba_spread = dict(
+        pose_t_m=max_abs_err(ms_a.kf_t_cw, ms_b.kf_t_cw), pose_R=max_abs_err(ms_a.kf_R_cw, ms_b.kf_R_cw),
+        points_m=max_abs_err(ms_a.lm_pos, ms_b.lm_pos), cost=abs(float(cost_a) - float(cost_b)),
+        cost_value=float(cost_a))
+    corr_ms = [f["ms"] for f in fr if f["frame"] in corr_frames]
+    loop6 = dict(
+        frames=len(slam6.trajectory), state=slam6.state, loops_closed=lc6.n_loops_closed,
+        closures=closures, last_closure=list(getattr(lc6, "last_closure", ())), warm_pass_closure=warm_closure,
+        corrected_at_frame=corr_frames, ref=REF_LOOP, gba_chunks=rec["calls"].get("gba_chunk", 0),
+        hypothesis_steps=rec["calls"].get("hypothesis_step", 0), verifications=rec["calls"].get("verify", 0),
+        keyframes=slam6.n_kf, keyframe_frames=kf_at6, stats=slam6.stats,
+        landmarks=int(slam6.ms.lm_valid.sum()), ate_m=ate6,
+        frame_p50_ms=float(np.percentile(lat6, 50)), frame_p99_ms=float(np.percentile(lat6, 99)),
+        frame_max_ms=float(lat6.max()), correction_frame_ms=corr_ms, frames_per_s=LOOP6_FRAMES / pass6_s,
+        slice_device_ms=slice6_ms, gba_spread=gba_spread, host_reads=reads,
+        refine_matcher_calls=len(rec["refine_inputs"]), launches=rec["launches"], peak_mib=rec["peak_mib"],
+        slice_wall_ms={k: dict(count=len(v), median=float(np.median(v)), max=float(np.max(v)))
+                       for k in ("tracking", "bow_insert", "loop", "gba_chunk", "local_ba_chunk", "fuse")
+                       for v in [[f["ms"] for f in fr[5:] if f["kind"] == k]] if v},
+    )
+    log(f"phase 6 ({smi}): " + json.dumps(loop6))
+    log(f"phase 6: {LOOP6_FRAMES} frames, loops {lc6.n_loops_closed} at {closures} (reference {REF_LOOP['closures']}), "
+        f"source {loop6['last_closure'][4:] if loop6['last_closure'] else None}, GBA chunks {loop6['gba_chunks']}; "
+        f"ATE {ate6 * 1e3:.3f} mm (JAX reference {REF_LOOP['ate_m'] * 1e3:.3f} mm); frame wall p50 "
+        f"{loop6['frame_p50_ms']:.2f} ms p99 {loop6['frame_p99_ms']:.2f} ms, correction frame {corr_ms} ms; "
+        "slices " + ", ".join(f"{k} {v:.3f} ms" for k, v in slice6_ms.items())
+        + f"; peak {rec['peak_mib']:.1f} MiB; phase 6 took {time.time() - t_p6:.1f} s")
+    bad = []
+    if slam6.state != slam_mod.TrackingState.OK:
+        bad.append(f"final state {slam6.state}")
+    if len(slam6.trajectory) != LOOP6_FRAMES:
+        bad.append(f"{len(slam6.trajectory)} frames recorded")
+    if closures != REF_LOOP["closures"]:
+        bad.append(f"closures {closures}, the reference closes {REF_LOOP['closures']}")
+    if not ate6 <= REF_LOOP["ate_m"] + ATE_MARGIN:
+        bad.append(f"ATE {ate6} m")
+    for r in reads:
+        if r["syncs"] > r["allowed"]:
+            bad.append(f"frame {r['frame']} ({r['kind']}): {r['syncs']} host reads, the reference's "
+                       f"{r['allowed']} ({r['calls']}; {r['sync_calls']})")
+    for k in LAUNCHES_PER_FRAME:
+        if rec["launches"][k] < LOOP6_FRAMES - 1:
+            bad.append(f"{k}: {rec['launches'][k]} launches over the pass")
+    if not rec["refine_inputs"]:
+        bad.append("no hypothesis refinement ran masked_best2")
+    if bad:
+        raise AssertionError("phase 6: " + "; ".join(bad))
+
+    return rec
 
 
 def main() -> int:
@@ -653,68 +1051,7 @@ def main() -> int:
     log(f"phase 1: launch floor (an empty kernel, back to back) {launch_floor[0]:.4f} ms "
         f"({launch_floor[1]:.4f}-{launch_floor[2]:.4f})")
     per_kernel = {}
-    for key, case, kern, plain, args_, bnd, library in checks:
-        before = counters[key].launches
-        out_k = kern(*args_)
-        torch.cuda.synchronize()
-        # one launch per call; a gather of no keypoints launches nothing
-        want = 0 if key == "gather_patches" and args_[1].shape[0] == 0 else 1
-        if counters[key].launches - before != want:
-            raise AssertionError(f"{key} {case}: {counters[key].launches - before} launches, expected {want}")
-        out_p = plain(*args_)
-        torch.cuda.synchronize()
-        for x, y in zip(*((o,) if isinstance(o, torch.Tensor) else o for o in (out_k, out_p))):
-            if x.shape != y.shape or x.dtype != y.dtype:
-                raise AssertionError(f"{key} {case}: kernel gives {x.dtype} {tuple(x.shape)}, "
-                                     f"plain version {y.dtype} {tuple(y.shape)}")
-        err = max_abs_err(out_k, out_p)
-        if err != 0.0:
-            raise AssertionError(f"{key} {case}: kernel differs from its plain version (max |err| {err})")
-        if key == "fast_nms" and bnd is None and int((out_p[1] > 0).sum()) < 100:
-            raise AssertionError(f"{key} {case}: too few corners to test anything")
-        entry = per_kernel.setdefault(key, dict(max_abs_err=0.0, cases=[], edge_cases=0))
-        entry["max_abs_err"] = max(entry["max_abs_err"], err)
-        if bnd is None:
-            entry["edge_cases"] += 1
-            log(f"  {key} {case}: exact")
-            continue
-        # the call's device work is its one kernel, so `ms` times the call
-        on_device = device_kernels(lambda: kern(*args_))
-        if len(on_device) != 1:
-            raise AssertionError(f"{key} {case}: one wrapper call put {len(on_device)} device "
-                                 f"activities on the stream, expected its kernel alone: {on_device}")
-        row = dict(case=case, device_kernel=on_device[0], device_kernels=len(on_device), **bnd)
-        if base_lib is not None:  # in turns: baseline, current, current, baseline
-            def base():
-                with launching_from(base_lib):
-                    return kern(*args_)
-
-            if max_abs_err(base(), out_p) != 0.0:
-                raise AssertionError(f"{key} {case}: baseline kernel differs from the plain version")
-            b1, k1, k2, b2 = (device_ms(f) for f in (base, lambda: kern(*args_),
-                                                    lambda: kern(*args_), base))
-            row["ms"] = statistics.median([k1[0], k2[0]])
-            row["ms_range"] = [min(k1[1], k2[1]), max(k1[2], k2[2])]
-            row["baseline_ms"] = statistics.median([b1[0], b2[0]])
-            row["baseline_ms_range"] = [min(b1[1], b2[1]), max(b1[2], b2[2])]
-        else:
-            k = device_ms(lambda: kern(*args_))
-            row["ms"], row["ms_range"] = k[0], [k[1], k[2]]
-        row["plain_ms"] = device_ms(lambda: plain(*args_))[0]
-        row["library_ms"] = None
-        if library is not None:
-            lib_err = max_abs_err(library(), out_p)
-            if lib_err != 0.0:
-                raise AssertionError(f"{key} {case}: the library call differs from the plain version")
-            row["library_ms"] = device_ms(library)[0]
-        entry["cases"].append(row)
-        base_txt = f", baseline {row['baseline_ms']:.4f} ms" if "baseline_ms" in row else ""
-        lib_txt = f", library {row['library_ms']:.4f} ms" if row["library_ms"] is not None else ""
-        log(f"  {key} {case}: exact; kernel {row['ms']:.4f} ms ({row['ms_range'][0]:.4f}-"
-            f"{row['ms_range'][1]:.4f}){base_txt}, plain {row['plain_ms']:.4f} ms{lib_txt}, "
-            f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; bytes {bnd['bytes_ms']:.4f}, "
-            f"ops {bnd['ops_ms']:.4f}) "
-            + " ".join(f"{k} {v}" for k, v in bnd.items() if k.endswith(("_px", "_pairs"))))
+    run_checks(checks, counters, per_kernel, base_lib)
     log("phase 1: every kernel equals its plain version exactly, edge cases included")
 
     # ---- phase 2: the main path --------------------------------------------
@@ -804,7 +1141,7 @@ def main() -> int:
     cfg = loop_config()
     t_p4 = time.time()
     gt, loop_frames = render_loop_sequence(cfg, LOOP_FRAMES, dev)
-    warm, _ = run_loop(cfg, loop_frames[:LOOP_WARMUP], dev)  # library handles, allocator, first BA
+    warm, _ = run_loop(cfg, loop_frames[:LOOP_WARMUP], dev, loop_closing=False)  # handles, allocator, first BA
     warm.flush_decisions()
     del warm
     torch.cuda.synchronize()
@@ -833,7 +1170,7 @@ def main() -> int:
             finally:
                 torch.cuda.set_sync_debug_mode("default")
                 slam_mod._HostRead.numpy = read_numpy
-            found = [str(w.message).splitlines()[0] for w in caught if "synchroniz" in str(w.message)]
+            found = [str(w.message).splitlines()[0] for w in caught if SYNC_WARNING in str(w.message)]
             syncs[head] = (i, len(found), sorted(set(found))[:5])
         else:
             call()
@@ -847,7 +1184,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t_pass = time.perf_counter()
-    slam, kf_at = run_loop(cfg, loop_frames, dev, timed, timer=True)
+    slam, kf_at = run_loop(cfg, loop_frames, dev, timed, timer=True, loop_closing=False)
     pass_s = time.perf_counter() - t_pass
     launches4 = {k: fn.launches for k, fn in counters.items()}
     peak4 = torch.cuda.max_memory_allocated() / 2**20
@@ -923,6 +1260,9 @@ def main() -> int:
     if kf_card != kf_host or not (d_c.max() <= TRANS_TOL and d_r.max() <= ROT_TOL):
         raise AssertionError("phase 5: card and CPU disagree on the loop")
 
+    # ---- phase 6: the loop-closure pass at bench scale ---------------------
+    rec6 = phase6(dev, counters, per_kernel, smi)
+
     sources = {
         "fast_nms": ("csrc/fast_nms.cu", "orb_slam3_detailed_comments_kor_tpu/ops/pallas_fast.py:149"),
         "gather_patches": ("csrc/gather_patches.cu", "orb_slam3_detailed_comments_kor_tpu/ops/pallas_gather.py:91"),
@@ -937,6 +1277,7 @@ def main() -> int:
             "source": "orb_slam3_detailed_comments_kor_tpu_torch/" + src, "replaces": rep,
             "launches": launches[k], "launches_per_frame": int(per_frame[k]),  # checked whole
             "launches_slam_loop": launches4[k], "launches_per_frame_slam_loop": int(per_frame4[k]),
+            "launches_loop_closure_pass": rec6["launches"][k],
             "max_abs_err": info["max_abs_err"], "ms": main_case["ms"],
             "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
             "bound_by": main_case["bound_by"], "library_ms": main_case["library_ms"],

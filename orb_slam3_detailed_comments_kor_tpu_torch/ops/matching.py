@@ -1,15 +1,16 @@
 """Hamming-space data association.
 
-Port of ``hamming_matrix``, ``masked_best2``, ``search_by_projection`` and
-``resolve_duplicate_targets`` from
+Port of ``hamming_matrix``, ``masked_best2``, ``match_nn_ratio``,
+``search_by_projection`` and ``resolve_duplicate_targets`` from
 ``orb_slam3_detailed_comments_kor_tpu/ops/matching.py``. The per-frame
-matcher goes through the ``masked_best2`` kernel (``cuda_matching``).
+matcher goes through the ``masked_best2`` kernel (``cuda_matching``);
+``match_nn_ratio`` stays plain torch, as it is in the reference.
 Thresholds mirror the reference: TH_LOW=50, TH_HIGH=100 of 256 bits.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -47,6 +48,38 @@ def masked_best2(dist: torch.Tensor, mask: torch.Tensor):
     d2 = d.scatter(1, best_idx[:, None], BIG)
     second = torch.amin(d2, dim=1)
     return best_idx.to(torch.int32), best, second
+
+
+def match_nn_ratio(
+    desc_a: torch.Tensor,
+    desc_b: torch.Tensor,
+    valid_a: torch.Tensor,
+    valid_b: torch.Tensor,
+    max_dist: float = TH_LOW,
+    ratio: float = 0.9,
+    mask: Optional[torch.Tensor] = None,
+    mutual: bool = True,
+) -> MatchResult:
+    """Nearest-neighbour matching with distance + Lowe-ratio gates and an
+    optional mutual check (SearchByBoW-style brute force). Descriptors are
+    {0,1} bits [N,256] or packed int32 [N,8]."""
+    from orb_slam3_detailed_comments_kor_tpu_torch.ops import orb as orb_ops
+
+    bits = lambda d: orb_ops.unpack_descriptors(d) if d.shape[-1] == 8 else d
+    dist = hamming_matrix(bits(desc_a), bits(desc_b))
+    m = valid_a[:, None] & valid_b[None, :]
+    if mask is not None:
+        m = m & mask
+    best_idx, best, second = masked_best2(dist, m)
+    ok = (best <= max_dist) & (best <= ratio * second)
+    if mutual:
+        best_back = torch.argmin(torch.where(m, dist, BIG), dim=0)  # [M] best A per B
+        ok = ok & (best_back[best_idx.to(torch.int64)]
+                   == torch.arange(desc_a.shape[0], device=dist.device))
+    ok = ok & valid_a
+    return MatchResult(
+        idx=torch.where(ok, best_idx, -1), dist=torch.where(ok, best, BIG), valid=ok
+    )
 
 
 def search_by_projection(

@@ -1,24 +1,31 @@
 """Host-side SLAM system facade + tracking state machine, stereo path.
 
 Port of the stereo pinhole path of
-``orb_slam3_detailed_comments_kor_tpu/slam/system.py`` with loop closing
-off: ``TrackingState``, ``select_eviction_slots`` and the parts of
-``SlamSystem`` that ``track_stereo`` reaches -- stereo initialization, the
-deferred, batched keyframe decisions, keyframe insertion, the background
-FIFO of mapping slices (duplicate fusion, local BA, landmark and redundant
-keyframe culling), capacity reclaim, the lost path and the trajectory.
+``orb_slam3_detailed_comments_kor_tpu/slam/system.py``:
+``TrackingState``, ``select_eviction_slots``, ``reloc_candidate_groups``
+and the parts of ``SlamSystem`` that ``track_stereo`` reaches -- stereo
+initialization, the deferred, batched keyframe decisions, keyframe
+insertion, the background FIFO of mapping slices (BoW inserts, duplicate
+fusion, local BA, landmark and redundant keyframe culling, loop detection
+and correction), the global-BA slices after a loop closure, capacity
+reclaim, the lost path with relocalization (in the active map and in
+shelved maps) and the trajectory. Loop closing is on by default, as in the
+reference.
 
 Counterpart of the reference's ``System`` (``src/System.cc``) and the host
 control of ``Tracking::Track()`` (``src/Tracking.cc:1718-2234``). All
 per-frame compute is ``tracking.full_frame_step`` on the device; the host
-reads the device only at initialization (the stereo depth count), in the
-batched decision read and in ``_reclaim_kf_slots``. Background mapping
-work runs as bounded slices, one ahead of each frame's dispatch
-(``_service_background``), so a frame never waits behind a whole solve.
+reads the device at initialization (the stereo depth count), in the
+batched decision read, in ``_reclaim_kf_slots``, on the lost path, and in
+a loop slice where the reference does (a verification's or hypothesis
+step's inlier count, the drift gate's pose segment, the closure's log
+line, a GBA slice's cost). Background mapping work runs as bounded
+slices, one ahead of each frame's dispatch (``_service_background``), so a
+frame never waits behind a whole solve.
 
-Not in this slice: loop closing and relocalization (``enable_loop_closing``
-is False and cannot be set), localization mode, the inertial, monocular,
-RGB-D and stereo-fisheye paths, the Atlas merge and map checkpoints.
+Not in this slice: the Atlas merge (raises where the reference would
+schedule it), localization mode, the inertial, monocular, RGB-D and
+stereo-fisheye paths and map checkpoints.
 """
 
 from __future__ import annotations
@@ -31,12 +38,16 @@ import torch
 
 from orb_slam3_detailed_comments_kor_tpu_torch.config import SLAMConfig, SensorType
 from orb_slam3_detailed_comments_kor_tpu_torch.models import camera as cam_mod
+from orb_slam3_detailed_comments_kor_tpu_torch.models import vocabulary as voc
+from orb_slam3_detailed_comments_kor_tpu_torch.ops import matching, ransac
 from orb_slam3_detailed_comments_kor_tpu_torch.ops import orb as orb_ops
 from orb_slam3_detailed_comments_kor_tpu_torch.slam import frontend
 from orb_slam3_detailed_comments_kor_tpu_torch.slam import map_merging
 from orb_slam3_detailed_comments_kor_tpu_torch.slam import map_state as msx
 from orb_slam3_detailed_comments_kor_tpu_torch.slam import tracking
-from orb_slam3_detailed_comments_kor_tpu_torch.utils import lie
+from orb_slam3_detailed_comments_kor_tpu_torch.slam.loop_closing import LoopCloser
+from orb_slam3_detailed_comments_kor_tpu_torch.utils import lie, prng
+from orb_slam3_detailed_comments_kor_tpu_torch.utils.host_read import HostRead as _HostRead
 from orb_slam3_detailed_comments_kor_tpu_torch.utils.timing import StageTimer
 
 
@@ -96,35 +107,46 @@ def select_eviction_slots(cov, protect, n_kf: int, n_evict: int = 5,
     return evict
 
 
-class _HostRead:
-    """One device tensor on its way to the host: on the card a
-    ``non_blocking`` copy into pinned memory with a CUDA event behind it
-    (the reference's ``copy_to_host_async``)."""
-
-    def __init__(self, x: torch.Tensor):
-        if x.is_cuda:
-            self.buf = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-            self.buf.copy_(x, non_blocking=True)
-            self.event = torch.cuda.Event()
-            self.event.record()
-        else:
-            self.buf, self.event = x, None
-
-    def is_ready(self) -> bool:
-        return self.event is None or self.event.query()
-
-    def numpy(self) -> np.ndarray:
-        # a pinned buffer read before its copy lands reads garbage
-        if self.event is not None:
-            self.event.synchronize()
-        return self.buf.numpy()
+def reloc_candidate_groups(
+    cov, scores, top_k: int = 3, covis_min: float = 15.0,
+    floor_ratio: float = 0.75, abs_floor: float = 0.05,
+):
+    """Covisibility-group relocalization candidates, best group first
+    (``DetectRelocalizationCandidates``, ``src/KeyFrameDatabase.cc:733``):
+    each keyframe's BoW score is accumulated over its covisibility group,
+    groups below ``floor_ratio`` x the best are dropped, and each retained
+    group contributes its best-scoring member. cov [n,n], scores [n]
+    (numpy). Returns an ordered list of keyframe indices (<= top_k)."""
+    cov = np.asarray(cov)
+    s = np.maximum(np.asarray(scores), 0.0)
+    n = s.shape[0]
+    member = cov >= covis_min
+    np.fill_diagonal(member, True)
+    group_score = member @ s
+    order = np.argsort(-group_score)
+    floor = floor_ratio * float(group_score[order[0]])
+    picked, seen = [], np.zeros((n,), bool)
+    for i in order:
+        if len(picked) >= top_k:
+            break
+        if seen[i] or group_score[i] < floor or s[i] <= 0.0:
+            continue
+        members = np.where(member[i])[0]
+        best = int(members[np.argmax(s[members])])
+        seen[members] = True
+        seen[i] = True
+        if s[best] < abs_floor or best in picked:
+            continue
+        picked.append(best)
+    return picked
 
 
 class SlamSystem:
-    """Stereo SLAM system over device-resident map state, loop closing off.
+    """Stereo SLAM system over device-resident map state.
 
-    ``device`` is where the map and every per-frame tensor live: the card
-    unless the caller names another.
+    ``device`` is where the map, the vocabulary and every per-frame tensor
+    live: the card unless the caller names another. ``enable_loop_closing``
+    is True by default, as in the reference.
     """
 
     #: frames whose decision scalars are fetched with one batched readback
@@ -190,20 +212,32 @@ class SlamSystem:
         self._last_track_time = None
         # FIFO of deferred per-keyframe mapping slices (see _bg_push)
         self._bg_queue: List[tuple] = []
-        # Atlas: shelved maps (kept for the trajectory; merging is not ported)
+        # Atlas: shelved maps (relocalization can switch back to one; the
+        # Atlas merge is not ported)
         self.atlas_maps: List[dict] = []
         self.timer = StageTimer(enabled=False)
+        # loop closing: the BoW database over the default vocabulary, and
+        # the RANSAC draws' key, split where the reference splits it
+        self.loop_closer = self._new_loop_closer()
+        self.enable_loop_closing = True
+        self._loop_key = prng.key_from_bytes(b"loopseed", self.device)
+        # remaining bounded GBA slices after a loop correction
+        self._gba_chunks_left = 0
+        self._gba_chunks_run = 0
+        self._gba_prev_cost = None
 
-    # ------------------------------------------------------------------
-    @property
-    def enable_loop_closing(self) -> bool:
-        """Loop closing is not ported: always False."""
-        return False
+    def _new_loop_closer(self) -> LoopCloser:
+        cap = self.cfg.capacity
+        return LoopCloser(
+            max_kf=cap.max_keyframes, vocab_k=cap.vocab_branching,
+            vocab_depth=min(cap.vocab_depth, 3), vocab=voc.load_default(self.device),
+        )
 
-    @enable_loop_closing.setter
-    def enable_loop_closing(self, value: bool) -> None:
-        if value:
-            raise NotImplementedError("loop closing is not ported")
+    def _split_key(self):
+        """A fresh RANSAC key (``jax.random.split`` of the system's key)."""
+        keys = prng.split(self._loop_key)
+        self._loop_key = keys[0]
+        return keys[1]
 
     @property
     def baseline(self) -> float:
@@ -265,11 +299,15 @@ class SlamSystem:
         one double-buffered device-to-host read, so decisions lag the
         dispatch by up to 2 x ``decision_batch`` frames."""
         cam = self.cfg.camera
+        # the prediction's pose and velocity flag are taken before the
+        # frame's background slice, as the reference takes them: a loop
+        # correction in that slice re-bases the live pose for the NEXT frame
+        R_last, t_last, has_vel = self.R_cw, self.t_cw, self._vel_flag[self.has_velocity]
         self._service_background()
         with self.timer.span("track/dispatch"):
             out = tracking.full_frame_step(
-                self.ms, img_l, img_r, self.R_cw, self.t_cw,
-                self.vel_R, self.vel_t, self._vel_flag[self.has_velocity],
+                self.ms, img_l, img_r, R_last, t_last,
+                self.vel_R, self.vel_t, has_vel,
                 self.cam_params,
                 bf=cam.bf, w=cam.width, h=cam.height,
                 scale=self.cfg.orb.scale_factor,
@@ -349,8 +387,8 @@ class SlamSystem:
             self._track_with_frame(e[0], e[2])
 
     def flush_decisions(self) -> None:
-        """Resolve deferred decisions and run every queued mapping slice
-        (call at sequence end)."""
+        """Resolve deferred decisions and the pending loop detection, and
+        run every queued mapping and GBA slice (call at sequence end)."""
         inflight = self._inflight_decisions
         self._inflight_decisions = None
         if inflight is not None:
@@ -359,7 +397,8 @@ class SlamSystem:
         self._pending_decisions = []
         if q:
             self._consume_decisions(q, _HostRead(torch.stack([it[1].n_inliers for it in q])))
-        while self._bg_queue:
+        self._maybe_close_loop(flush=True)
+        while self._bg_queue or self._gba_chunks_left > 0:
             self._service_background()
 
     def _decide(self, frame, tr, t: float, n_inliers=None, dispatch_idx=None) -> None:
@@ -419,12 +458,18 @@ class SlamSystem:
                 self._reset_active_map()
 
     def _create_map_in_atlas(self) -> None:
-        """Shelve the active map and start a fresh one. The shelf keeps
-        what the trajectory needs; the reference's BoW database and merge
-        prior belong to map merging, which is not ported."""
+        """Shelve the active map and start a fresh one. The shelf keeps the
+        map's BoW database (relocalization searches it); the reference's
+        merge prior belongs to the Atlas merge, which is not ported."""
+        # complete pending BoW inserts so the shelved database covers every
+        # keyframe; refinement slices are dropped with the queue on reset
+        for kind, fn in list(self._bg_queue):
+            if kind == "bow_insert":
+                fn()
         self.atlas_maps.append({
             "ms": self.ms,
             "n_kf": self.n_kf,
+            "loop_closer": self.loop_closer,
             "traj_end": len(self.trajectory),
             "gen": self._map_gen,
             "kf_times": list(self._host_kf_times()),
@@ -436,6 +481,7 @@ class SlamSystem:
         cap = self.cfg.capacity
         self.ms = msx.empty_map(cap.max_keyframes, self.n_feat, cap.max_landmarks,
                                 device=self.device)
+        self.loop_closer = self._new_loop_closer()
         self.n_kf = 0
         self._kf_times_host = []
         self._kf_lowq_host = []
@@ -445,18 +491,120 @@ class SlamSystem:
         self.n_lost_frames = 0
         self.state = TrackingState.NOT_INITIALIZED
         self.has_velocity = False
-        # queued mapping slices target the OLD map
+        # queued mapping slices and pending GBA target the OLD map
         self._bg_queue = []
+        self._gba_chunks_left = 0
+        self._gba_prev_cost = None
         self._gen_counter += 1
         self._map_gen = self._gen_counter
 
     def _relocalize(self, frame: frontend.Frame) -> bool:
-        """Relocalization needs the keyframe BoW database, which only loop
-        closing fills (its ``bow_insert`` slices). With loop closing off
-        the database stays empty and the reference's attempt returns no
-        pose (``_relocalize_in`` gives None before any matching), so this
-        is always False."""
+        """BoW candidates + PnP RANSAC (Tracking::Relocalization), in the
+        active map and then in the shelved maps, newest first; a pose found
+        in a shelved map switches back to it."""
+        pose = self._relocalize_in(frame, self.ms, self.loop_closer, self.n_kf)
+        if pose is not None:
+            self.R_cw, self.t_cw = pose
+            self.has_velocity = False
+            return True
+        for idx in range(len(self.atlas_maps) - 1, -1, -1):
+            shelf = self.atlas_maps[idx]
+            if shelf.get("loop_closer") is None:
+                continue
+            pose = self._relocalize_in(frame, shelf["ms"], shelf["loop_closer"], shelf["n_kf"])
+            if pose is not None:
+                self._switch_to_shelved(idx)
+                self.R_cw, self.t_cw = pose
+                self.has_velocity = False
+                return True
         return False
+
+    def _relocalize_in(self, frame, ms, lc, n_kf):
+        """One map's attempt: BoW scores over the whole database (one host
+        read), covisibility-group candidates, then PnP RANSAC and guided
+        verification per candidate until one passes. Returns (R_cw, t_cw)
+        or None."""
+        if lc.vocab is None or n_kf < 1:
+            return None
+        q_ids, q_wts = voc.sparse_bow_soft_from_desc(lc.vocab, frame.desc, frame.valid)
+        scores = voc.sparse_l1_score(q_ids, q_wts, lc.db_words, lc.db_wts).cpu().numpy().copy()
+        scores[n_kf:] = -1.0
+        if float(scores.max()) < 0.05:
+            return None
+        for cand in self._reloc_candidates(ms, scores, n_kf):
+            pose = self._reloc_attempt(frame, ms, cand)
+            if pose is not None:
+                return pose
+        return None
+
+    #: candidate groups tried per map (DetectNBestCandidates' nNumCandidates)
+    _RELOC_TOP_K = 3
+
+    def _reloc_candidates(self, ms, scores, n_kf):
+        if n_kf == 1:
+            return [0]
+        cov = msx.covisibility_weights(ms, torch.arange(ms.K, device=self.device)).cpu().numpy()
+        return reloc_candidate_groups(cov[:n_kf, :n_kf], scores[:n_kf], top_k=self._RELOC_TOP_K)
+
+    def _reloc_attempt(self, frame, ms, cand: int):
+        """One candidate: descriptor match -> PnP RANSAC -> two guided
+        tracking rounds (``Tracking.cc:3801-3940``). Returns (R_cw, t_cw)
+        or None."""
+        vb = ms.kf_feat_valid[cand] & (ms.obs_lm[cand] >= 0)
+        res = matching.match_nn_ratio(frame.desc, ms.kf_desc[cand], frame.valid, vb,
+                                      max_dist=60, ratio=0.8)
+        feat_b = torch.clamp(res.idx, min=0).to(torch.int64)
+        lm = ms.obs_lm[cand, feat_b]
+        ok3d = res.valid & (lm >= 0)
+        X = ms.lm_pos[torch.clamp(lm, min=0).to(torch.int64)]
+        R, t, _, n = ransac.pnp_ransac(X, frame.xy, ok3d, self.cam_params, self._split_key(),
+                                       n_hyp=192, inlier_px=6.0)
+        if int(n) < 15:
+            return None
+        # guided refinement: track the whole map from the PnP pose, twice,
+        # and require a solid inlier count
+        cam = self.cfg.camera
+        for _ in range(2):
+            tr = tracking.track_frame(
+                ms, frame, R, t, self.cam_params, cam.bf, w=cam.width, h=cam.height,
+                scale=self.cfg.orb.scale_factor, n_levels=self.cfg.orb.n_levels,
+                cam_model=self.cam_model,
+            )
+            R, t = tr.R_cw, tr.t_cw
+        if int(tr.n_inliers) < max(50, self.cfg.tracking.min_inliers_local_map):
+            return None
+        return tr.R_cw, tr.t_cw
+
+    def _switch_to_shelved(self, idx: int) -> None:
+        """Re-activate a shelved Atlas map; the active map is shelved in
+        its place if mature, else dropped."""
+        shelf = self.atlas_maps.pop(idx)
+        for kind, fn in list(self._bg_queue):
+            if kind == "bow_insert":
+                fn()
+        if self.n_kf >= 5:
+            self.atlas_maps.append({
+                "ms": self.ms,
+                "n_kf": self.n_kf,
+                "loop_closer": self.loop_closer,
+                "traj_end": len(self.trajectory),
+                "gen": self._map_gen,
+                "kf_times": list(self._host_kf_times()),
+                "kf_lowq": list(self._kf_lowq_host),
+            })
+        self.ms = shelf["ms"]
+        self.n_kf = shelf["n_kf"]
+        self._kf_times_host = list(shelf.get("kf_times") or self.ms.kf_time[: self.n_kf].cpu().numpy())
+        self._kf_lowq_host = list(shelf.get("kf_lowq") or [False] * self.n_kf)
+        self.loop_closer = shelf["loop_closer"]
+        self._map_gen = shelf["gen"]
+        # queued mapping slices captured indices of the map switched away from
+        self._bg_queue = []
+        self._gba_chunks_left = 0
+        self._gba_prev_cost = None
+        self.frames_since_kf = 0
+        self._last_kf_dispatch_idx = self._dispatch_idx
+        self.n_lost_frames = 0
 
     # ------------------------------------------------------------------
     # Background mapping FIFO: every per-keyframe job (duplicate fusion,
@@ -498,13 +646,56 @@ class SlamSystem:
                 fn()
 
     def _service_background(self) -> None:
-        """One background slice per frame dispatch. (The reference runs a
-        pending global-BA slice when the queue is empty; only loop closing
-        schedules one.)"""
+        """One background slice per frame dispatch: queued per-KF mapping
+        jobs first, then any pending GBA slice."""
         if self._bg_queue:
             kind, fn = self._bg_queue.pop(0)
             with self.timer.span(f"mapping/{kind}"):
                 fn()
+        else:
+            self._service_gba()
+
+    def _service_gba(self) -> None:
+        """Dispatch one pending GBA slice (2 LM iterations over the whole
+        map) and adapt the remaining budget to its cost."""
+        if self._gba_chunks_left > 0:
+            with self.timer.span("mapping/gba_chunk"):
+                self.ms, cost = self.loop_closer.gba_chunk(
+                    self.ms, self.cam_params, self.cfg.camera.bf, cam_model=self.cam_model,
+                )
+            self._gba_chunks_left -= 1
+            self._gba_chunks_run += 1
+            self._adapt_gba_budget(cost)
+
+    # GBA convergence control: each chunk returns its final chi² sum;
+    # converged -> cancel the remaining chunks, still descending on the last
+    # scheduled chunk -> extend (bounded)
+    _GBA_CHUNKS_MAX = 12
+    _GBA_REL_TOL = 1e-3
+
+    def _adapt_gba_budget(self, cost) -> None:
+        if cost is None:
+            return
+        cost = float(cost)  # one host read per chunk
+        # chi² sums compare only between chunks over the same observations
+        sig = (
+            self._map_gen, self.n_kf, self.stats["kf_inserted"],
+            self.stats["kf_culled"], self.stats["kf_evicted"],
+        )
+        prev_rec = self._gba_prev_cost
+        self._gba_prev_cost = (cost, sig)
+        if prev_rec is None:
+            return
+        prev, prev_sig = prev_rec
+        if prev_sig != sig or prev <= 0.0:
+            return
+        rel = (prev - cost) / prev
+        if rel < self._GBA_REL_TOL:
+            self._gba_chunks_left = 0  # converged (or oscillating): stop
+        elif (self._gba_chunks_left == 0
+              and self._gba_chunks_run < self._GBA_CHUNKS_MAX
+              and rel > 0.02):
+            self._gba_chunks_left = 2  # still descending: extend the solve
 
     def _track_with_frame(self, frame: frontend.Frame, t: float) -> None:
         """Unfused, synchronous track path for pre-extracted frames (the
@@ -599,10 +790,10 @@ class SlamSystem:
             protect[max(self.n_kf - d, 0)] = True
         n_before = self.n_kf
         self.stats["reclaims"] += 1
-        # queued slices capture pre-compaction slot indices: the reference
-        # runs its BoW inserts and loop slices now (no-ops with loop
-        # closing off) and drops the refinement slices -- the next
-        # keyframe reschedules fresh ones
+        # queued slices capture pre-compaction slot indices: BoW inserts
+        # and loop slices run now (the consistency gate counts consecutive
+        # keyframes); refinement slices are dropped -- the next keyframe
+        # reschedules fresh ones
         keep = [it for it in self._bg_queue if it[0] in ("bow_insert", "loop")]
         self._bg_queue = []
         for kind, fn in keep:
@@ -636,6 +827,7 @@ class SlamSystem:
             nv = int(n_valid)
         self.ms = ms2
         noo = new_of_old.cpu().numpy()
+        self.loop_closer.compact(noo)
         # host-side timestamp + quality mirrors follow the slot compaction
         kt = self._host_kf_times()
         new_times = np.zeros((nv,), np.float64)
@@ -683,17 +875,131 @@ class SlamSystem:
         self._cur_track_inliers = None
         lowq = ni is not None and ni < 2 * self.cfg.tracking.min_inliers_local_map
         self._kf_lowq_host = self._kf_lowq_host[: self.n_kf] + [bool(lowq)]
+        kf_idx_host = self.n_kf
         self.n_kf += 1
         self.frames_since_kf = 0
         # synchronous insertion paths (init / _track_with_frame): the KF is
         # the CURRENT frame; batched _decide overrides with its snapshot
         self._last_kf_dispatch_idx = self._dispatch_idx
+        if self.enable_loop_closing:
+            # BoW database insert (KeyFrameDatabase::add) rides the FIFO, so
+            # it lands before any detection queued for this keyframe
+            self._bg_push("bow_insert", functools.partial(
+                self.loop_closer.add_keyframe, kf_idx_host, frame.desc, frame.valid))
+
+    def _loop_gate_allows(self, kf_idx: int, cand: int, R_d, t_d, s_d, mode: str) -> bool:
+        """Drift-plausibility gate: a loop correction's displacement of the
+        current keyframe may not exceed the drift the trajectory could have
+        accumulated since the candidate: 15 % of each segment's arc, 50 %
+        where its keyframes were inserted under degraded tracking (mono
+        40 % / 80 %), plus ten baselines. One host read (the pose segment
+        and the warp together)."""
+        lo, hi = (cand, kf_idx) if cand <= kf_idx else (kf_idx, cand)
+        n = hi - lo + 1
+        host = torch.cat([
+            self.ms.kf_R_cw[lo:hi + 1].reshape(-1), self.ms.kf_t_cw[lo:hi + 1].reshape(-1),
+            R_d.reshape(-1), t_d.reshape(-1), s_d.reshape(-1),
+        ]).cpu().numpy()
+        Rseg = host[: 9 * n].reshape(n, 3, 3)
+        tseg = host[9 * n: 12 * n].reshape(n, 3)
+        R_dh = host[12 * n: 12 * n + 9].reshape(3, 3)
+        t_dh = host[12 * n + 9: 12 * n + 12]
+        s_dh = float(host[12 * n + 12])
+        centers = -np.einsum("kji,kj->ki", Rseg, tseg)
+        seg_len = np.linalg.norm(np.diff(centers, axis=0), axis=1)
+        c_cur = centers[-1] if cand <= kf_idx else centers[0]
+        disp = float(np.linalg.norm(s_dh * (R_dh @ c_cur) + t_dh - c_cur))
+        frac, frac_lowq = (0.4, 0.8) if mode == "sim3" else (0.15, 0.5)
+        q = self._kf_lowq_host
+        lowq = np.zeros((n,), bool)
+        for i in range(lo, min(hi + 1, len(q))):
+            lowq[i - lo] = bool(q[i])
+        rate = np.where(lowq[1:] | lowq[:-1], frac_lowq, frac)
+        allowed = float((rate * seg_len).sum()) + 10.0 * max(self.baseline, 0.01)
+        return disp <= allowed
 
     def _maybe_close_loop(self, flush: bool = False) -> None:
-        """Loop detection and correction: off in this slice. The FIFO still
-        carries a ``loop`` entry per keyframe, as the reference's does with
-        loop closing off, because each entry takes one frame's slice slot
-        and so sets when the slices after it run."""
+        """Detect + verify + correct (LoopClosing::Run per keyframe).
+
+        Detection is deferred by one keyframe: the scores dispatched at
+        keyframe k are read when keyframe k+1's loop slice runs. A BoW hit
+        seeds a hypothesis by a full verification; a live hypothesis is
+        refined against each new keyframe and accepted after enough
+        confirmations; a consistent BoW streak verifies its candidate and
+        up to two alternates. An accepted loop passes the drift gate, is
+        corrected (SE(3) essential graph), followed by duplicate fusion of
+        the recent landmarks, the re-basing of the live pose and four GBA
+        slices."""
+        if not self.enable_loop_closing:
+            return
+        if flush:
+            kf_idx, cand = self.loop_closer.poll_detect()
+        else:
+            kf_idx, cand = self.loop_closer.detect_async(self.ms, self.n_kf - 1, self.n_kf)
+        # stereo maps take the SE(3) essential graph (LoopClosing.cc:1239-1245)
+        mode = "se3"
+        lc = self.loop_closer
+        ok = False
+        if cand < 0:
+            if lc._hyp is not None:
+                acc, c_h, R_d, t_d, s_d = lc.hypothesis_step(
+                    self.ms, self.n_kf - 1, self.cam_params, cam_model=self.cam_model,
+                    fix_scale=True,
+                )
+                if not acc:
+                    return
+                kf_idx, cand, ok = self.n_kf - 1, c_h, True
+                lc._closure_src = "hyp"
+            elif kf_idx >= 0 and lc._consecutive == 1 and lc._last_cand >= 0:
+                # a fresh unconfirmed BoW hit seeds a hypothesis with a full
+                # geometric verification
+                ok_seed, R_s, t_s, s_s = lc.verify(
+                    self.ms, kf_idx, lc._last_cand, self._split_key(), fix_scale=True,
+                    cam_params=self.cam_params, cam_model=self.cam_model,
+                )
+                if ok_seed:
+                    lc.start_hypothesis(lc._last_cand, R_s, t_s, s_s)
+                return
+            else:
+                return
+        if not ok:
+            for c in [cand] + [c for c in lc._alternates if c >= 0][:2]:
+                ok, R_d, t_d, s_d = lc.verify(
+                    self.ms, kf_idx, c, self._split_key(), fix_scale=True,
+                    cam_params=self.cam_params, cam_model=self.cam_model,
+                )
+                if ok:
+                    cand = c
+                    lc._closure_src = "bow"
+                    break
+        if not ok:
+            return
+        if not self._loop_gate_allows(kf_idx, cand, R_d, t_d, s_d, mode):
+            self.stats["loops_rejected_gate"] = self.stats.get("loops_rejected_gate", 0) + 1
+            lc._hyp = None
+            lc._consecutive = 0
+            return
+        R_kf_old = self.ms.kf_R_cw[kf_idx]
+        t_kf_old = self.ms.kf_t_cw[kf_idx]
+        self.ms = lc.correct(
+            self.ms, self.n_kf, kf_idx, cand, R_d, t_d, self.cam_params, self.cfg.camera.bf,
+            mode=mode, s_delta=s_d, run_gba=False,
+        )
+        # GBA as bounded slices between the next frames' dispatches
+        self._gba_chunks_left = 4
+        self._gba_chunks_run = 0
+        self._gba_prev_cost = None
+        # SearchAndFuse: the two loop sides now overlap, so landmarks born
+        # on the current side that coincide with loop-side ones merge
+        recent = self.ms.lm_valid & (self.ms.lm_first_kf >= max(kf_idx - 10, 0))
+        radius = max(0.5 * self.baseline, 0.02) if self.baseline > 0 else 0.05
+        self.ms, _ = map_merging.fuse_duplicate_landmarks(self.ms, recent, radius=radius)
+        # re-base the live pose onto the corrected map:
+        # T_track' = T_track ∘ T_kf_old⁻¹ ∘ T_kf_new
+        Ri, ti = lie.se3_inverse(R_kf_old, t_kf_old)
+        Rm, tm = lie.se3_compose(Ri, ti, self.ms.kf_R_cw[kf_idx], self.ms.kf_t_cw[kf_idx])
+        self.R_cw, self.t_cw = lie.se3_compose(self.R_cw, self.t_cw, Rm, tm)
+        self.has_velocity = False
 
     def _insert_keyframe(self, frame: frontend.Frame, t: float, lm_feat) -> None:
         self._insert_keyframe_visual_only(frame, t, lm_feat)
@@ -709,6 +1015,10 @@ class SlamSystem:
                 self._bg_drop(("cull_kf",))
                 self._bg_push("cull_kf", self._cull_redundant_slice)
             self._bg_push("loop", self._maybe_close_loop)
+            if self.atlas_maps and self.enable_loop_closing:
+                # the reference probes every new keyframe against the
+                # shelved maps here (map_merging.try_merge)
+                raise NotImplementedError("Atlas merge is not ported")
             # the live tracking pose is deliberately NOT overwritten by the
             # BA result: the tracker re-aligns at the next frame
             self._bg_backpressure()

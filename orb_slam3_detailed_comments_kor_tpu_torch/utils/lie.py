@@ -1,10 +1,11 @@
 """SO(3) / SE(3) Lie-group operations on torch tensors.
 
 Port of ``orb_slam3_detailed_comments_kor_tpu/utils/lie.py`` (the functions
-the stereo tracking step and the stereo SLAM loop use). Same conventions: rotations are 3x3
-matrices; SE(3) is (R, t) acting as x -> R @ x + t; ``T_ab`` maps b-frame
-points to the a-frame. Small-angle branches are ``torch.where`` selections,
-so nothing here reads a value back to the host.
+the stereo tracking step, the stereo SLAM loop and loop closing use). Same
+conventions: rotations are 3x3 matrices; SE(3) is (R, t) acting as
+x -> R @ x + t; Sim(3) is (R, t, s) acting as x -> s R x + t; ``T_ab`` maps
+b-frame points to the a-frame. Small-angle branches are ``torch.where``
+selections, so nothing here reads a value back to the host.
 """
 
 from __future__ import annotations
@@ -183,3 +184,83 @@ def se3_rel(Ra, ta, Rb, tb):
 # The reference jits se3_compose into one dispatch for its host-side pose
 # bookkeeping (keyframe save/restore); eager torch needs no separate form.
 se3_compose_j = se3_compose
+
+
+def so3_right_jacobian_inv(w):
+    """Inverse right Jacobian, Taylor-safe."""
+    theta, _ = _safe_norm(w)
+    W = hat(w)
+    W2 = W @ W
+    small = theta < 1e-4
+    ts = torch.where(small, 1.0, theta)
+    # coefficient of W2: 1/θ² - (1+cosθ)/(2 θ sinθ)
+    coef = torch.where(
+        small,
+        1.0 / 12.0 + theta * theta / 720.0,
+        1.0 / (ts * ts) - (1.0 + torch.cos(ts)) / (2.0 * ts * torch.sin(ts)),
+    )
+    return _eye_like(W) + 0.5 * W + coef[..., None, None] * W2
+
+
+def se3_log(R, t):
+    """log: (R, t) -> [...,6] (rho, phi)."""
+    phi = so3_log(R)
+    Jl_inv = so3_right_jacobian_inv(-phi)  # J_l(phi)^{-1} = J_r(-phi)^{-1}
+    return torch.cat([_mv(Jl_inv, t), phi], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Sim(3): (R, t, s) with action x -> s·R·x + t
+# ---------------------------------------------------------------------------
+
+def sim3_apply(R, t, s, x):
+    return s[..., None] * _mv(R, x) + t
+
+
+def sim3_inverse(R, t, s):
+    Rt = R.transpose(-1, -2)
+    s_inv = 1.0 / s
+    return Rt, -s_inv[..., None] * _mv(Rt, t), s_inv
+
+
+def sim3_compose(Ra, ta, sa, Rb, tb, sb):
+    """S_a ∘ S_b: (Ra Rb, sa·Ra·tb + ta, sa·sb)."""
+    return Ra @ Rb, sa[..., None] * _mv(Ra, tb) + ta, sa * sb
+
+
+def _sim3_V(phi, theta, sigma, s):
+    """The W matrix V = A I + B W + C W² of Sim(3) (Eade), Taylor-safe."""
+    W = hat(phi)
+    W2 = W @ W
+    sig_small = torch.abs(sigma) < 1e-5
+    sig_s = torch.where(sig_small, 1.0, sigma)
+    A = torch.where(sig_small, 1.0 + sigma / 2.0, (s - 1.0) / sig_s)
+    th_small = theta < 1e-5
+    th_s = torch.where(th_small, 1.0, theta)
+    sig2_th2 = sigma * sigma + theta * theta
+    denom = torch.where(torch.abs(sig2_th2) < 1e-12, 1.0, sig2_th2)
+    a_coef = s * torch.sin(th_s)
+    b_coef = s * torch.cos(th_s)
+    B_gen = (a_coef * sigma + (1.0 - b_coef) * th_s) / (th_s * denom)
+    C_gen = (A - ((b_coef - 1.0) * sigma + a_coef * th_s) / denom) / (th_s * th_s)
+    B = torch.where(th_small, 0.5 + sigma / 6.0, B_gen)
+    C = torch.where(th_small, 1.0 / 6.0 + sigma / 24.0, C_gen)
+    return A[..., None, None] * _eye_like(W) + B[..., None, None] * W + C[..., None, None] * W2
+
+
+def sim3_exp(xi):
+    """Sim(3) exp: [...,7] (rho, phi, sigma) -> (R, t, s)."""
+    rho, phi, sigma = xi[..., :3], xi[..., 3:6], xi[..., 6]
+    theta, _ = _safe_norm(phi)
+    s = torch.exp(sigma)
+    return so3_exp(phi), _mv(_sim3_V(phi, theta, sigma, s), rho), s
+
+
+def sim3_log(R, t, s):
+    """Sim(3) log -> [...,7]; inverse of sim3_exp (V solved)."""
+    phi = so3_log(R)
+    sigma = torch.log(s)
+    theta = torch.linalg.vector_norm(phi, dim=-1)
+    V = _sim3_V(phi, theta, sigma, s)
+    rho = torch.linalg.solve_ex(V, t[..., None])[0][..., 0]
+    return torch.cat([rho, phi, sigma[..., None]], dim=-1)

@@ -11,7 +11,10 @@ Every kernel comparison is exact: the kernels compute the same integer
 and float operations in the same order as the plain versions. The edge
 cases are ``chip_smoke.py``'s, which checks the same ones on every run.
 The loop tests are chip_smoke.py phase 5 at 8 frames (poses within its
-TRANS_TOL and ROT_TOL) and a local-BA slice under the sync debug mode.
+TRANS_TOL and ROT_TOL), a local-BA slice under the sync debug mode, the
+small injected loop closure (``chip_smoke.SMALL_CLOSURE``) on the card
+against the CPU, and a global-BA slice under the sync debug mode in
+"error".
 """
 
 import pytest
@@ -125,6 +128,54 @@ def test_local_ba_slice_never_syncs(dev):
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    syncs = [str(w.message) for w in caught if "synchroniz" in str(w.message)]
+    syncs = [str(w.message) for w in caught if chip_smoke.SYNC_WARNING in str(w.message)]
     assert not syncs, syncs
     assert not torch.equal(slam.ms.kf_t_cw, before)  # the slice moved the window
+
+
+def test_small_injected_loop_card_matches_cpu(dev):
+    # chip_smoke.SMALL_CLOSURE on the card and on the CPU: the same closure,
+    # keyframes and counters, and the trajectory right after the correction
+    # within TRANS_TOL / ROT_TOL per frame
+    cpu = torch.device("cpu")
+    sc = chip_smoke.SMALL_CLOSURE
+    cfg = chip_smoke.loop_config(small=True, closure=True)
+    _, frames = chip_smoke.render_loop_sequence(cfg, sc["frames"], cpu, "outback", sc["speed"])
+    runs = []
+    for d in (dev, cpu):
+        at_closure = {}
+
+        def on_frame(i, slam, call):
+            n = slam.loop_closer.n_loops_closed
+            call()
+            if slam.loop_closer.n_loops_closed != n:
+                at_closure["traj"] = slam.trajectory_arrays()
+                at_closure["frame"] = i
+
+        slam, kf_at = chip_smoke.run_loop(cfg, [(a.to(d), b.to(d)) for a, b in frames], d, on_frame,
+                                          inject_at=sc["inject_at"], min_gap=sc["min_gap"])
+        runs.append((slam, kf_at, at_closure))
+    (card, kf_card, c_card), (host, kf_host, c_host) = runs
+    assert card.loop_closer.n_loops_closed == host.loop_closer.n_loops_closed == 1
+    assert card.loop_closer.last_closure[:2] == host.loop_closer.last_closure[:2]
+    assert c_card["frame"] == c_host["frame"] and kf_card == kf_host and card.stats == host.stats
+    d_c, d_r = chip_smoke.trajectory_diff(c_card["traj"], c_host["traj"])
+    assert d_c.max() <= chip_smoke.TRANS_TOL and d_r.max() <= chip_smoke.ROT_TOL
+
+
+def test_gba_chunk_reads_the_host_once(dev):
+    # one GBA slice of the small loop's map under the sync debug mode in
+    # "error": any call in it that waits on the device raises; the slice's
+    # one host read is its cost, taken after it
+    cfg = chip_smoke.loop_config(small=True)
+    _, frames = chip_smoke.render_loop_sequence(cfg, 8, dev)
+    slam, _ = chip_smoke.run_loop(cfg, frames, dev)
+    before = slam.ms.kf_t_cw.clone()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ms, cost = slam.loop_closer.gba_chunk(slam.ms, slam.cam_params, cfg.camera.bf)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert float(cost) > 0.0
+    assert not torch.equal(ms.kf_t_cw, before)  # the slice moved the map

@@ -30,6 +30,9 @@ SLICE_MODULES = [
     "io.synthetic",
     # the stereo SLAM loop
     "slam.map_merging", "slam.system", "eval.ate", "io.trajectory", "utils.timing",
+    # loop closing and relocalization
+    "utils.prng", "utils.host_read", "models.vocabulary", "ops.ransac", "optim.pose_graph",
+    "slam.loop_closing",
 ]
 
 
@@ -95,7 +98,8 @@ def test_config_fields_equal(name):
 @pytest.mark.parametrize(
     "module,name",
     [("slam.map_state", "empty_map"), ("io.synthetic", "default_scene"),
-     ("models.camera", "camera_params_from_config"), ("slam.system", "SlamSystem")],
+     ("models.camera", "camera_params_from_config"), ("slam.system", "SlamSystem"),
+     ("models.vocabulary", "load_default"), ("utils.prng", "key_from_bytes")],
 )
 def test_entry_points_default_to_cuda(module, name):
     """Entry points that make tensors from nothing put them on the card
@@ -104,3 +108,17 @@ def test_entry_points_default_to_cuda(module, name):
     fn = getattr(importlib.import_module(f"{PKG}.{module}"), name)
     default = inspect.signature(fn).parameters["device"].default
     assert default is not None and torch.device(default).type == "cuda"
+
+
+def test_loop_closing_on_by_default():
+    """``SlamSystem(cfg)`` closes loops unless told otherwise, as the
+    reference's does: a plain attribute, True after construction, with a
+    loop closer over the default vocabulary on the system's device."""
+    from orb_slam3_detailed_comments_kor_tpu_torch.slam.system import SlamSystem
+
+    slam = SlamSystem(tcfg.SLAMConfig(), device="cpu")
+    assert slam.enable_loop_closing is True
+    assert slam.loop_closer.vocab is not None and slam.loop_closer.vocab.idf.device.type == "cpu"
+    assert slam.loop_closer.db_words.shape == (slam.ms.K, 2048)
+    slam.enable_loop_closing = False  # a plain attribute: the caller may turn it off
+    assert slam.enable_loop_closing is False

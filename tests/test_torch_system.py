@@ -1,5 +1,5 @@
 """The port's stereo SLAM loop (``slam.system.SlamSystem``, loop closing
-off) against the JAX reference's on the CPU: both systems take the same
+off on both sides) against the JAX reference's on the CPU: both systems take the same
 16 numpy stereo pairs of the strafe sequence at the 240x376 / 600-feature
 geometry of ``tests/test_slam_e2e.py`` (``chip_smoke.loop_config(small=
 True)``: 8 keyframe slots, so capacity reclaim runs; a keyframe every
@@ -88,10 +88,12 @@ def loops():
         imgs.append((np.array(il), np.array(ir)))
     jax_system = JaxSlam(jax_cfg)
     jax_system.enable_loop_closing = False
+    torch_system = TorchSlam(cfg, device="cpu")
+    torch_system.enable_loop_closing = False
     # the two runs are independent: overlap them (each is deterministic)
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         j = pool.submit(run, jax_system, imgs)
-        t = pool.submit(run, TorchSlam(cfg, device="cpu"), imgs)
+        t = pool.submit(run, torch_system, imgs)
         return j.result(), t.result(), ts, cfg
 
 

@@ -153,7 +153,9 @@ def main() -> int:
     jax_system = JaxSlam(to_jax_config(cfg))
     jax_system.enable_loop_closing = False
     j = run(jax_system)
-    t = run(TorchSlam(cfg, device="cpu"))
+    torch_system = TorchSlam(cfg, device="cpu")
+    torch_system.enable_loop_closing = False
+    t = run(torch_system)
     d_c, d_r = cs.trajectory_diff(j["traj"], t["traj"])
     print(json.dumps({
         "frames": args.frames, "scatter": args.scatter,

@@ -20,8 +20,9 @@ the host several times over. Prints one JSON line; ``--out`` also writes it, wit
 step by name and the host ops with the most self time, to FILE.
 
 With ``--loop`` it profiles the SLAM loop instead: chip_smoke.py's
-bench-scale ``SlamSystem`` (``loop_config``) over the first F frames of the
-strafe sequence, blocking on each frame's pose. After a warm-up of 20
+bench-scale ``SlamSystem`` (``loop_config``, loop closing off, as in
+phase 4) over the first F frames of the strafe sequence, blocking on each
+frame's pose. After a warm-up of 20
 frames, the first frame whose dispatch services each kind of background
 slice (``local_ba_chunk``, ``fuse``, ``cull_lm``, ``loop``, or none) runs
 under the profiler; the others give each kind's unprofiled wall time.
@@ -187,6 +188,7 @@ def profile_loop(args, cs, dev, smi) -> int:
     cfg = cs.loop_config()
     _, frames = cs.render_loop_sequence(cfg, args.frames, dev)
     slam = SlamSystem(cfg, device=dev)
+    slam.enable_loop_closing = False  # the strafe loop of chip_smoke.py phase 4
     walls, profiled = collections.defaultdict(list), {}
     torch.cuda.synchronize()
     for i, (il, ir) in enumerate(frames):
