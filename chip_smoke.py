@@ -39,13 +39,18 @@ Phase 4  the SLAM loop at bench scale: ``slam.system.SlamSystem`` (loop
          each frame's pose (bench.py's latency pass) and prints frame wall
          p50/p99 (frames 5-129), frames/s, the ATE, the keyframes, the peak
          device memory and the device ms of one local-BA, fusion and
-         landmark-culling slice. It fails unless the final state is OK, all
-         130 frames are recorded, >= 10 keyframes were inserted, the
+         landmark-culling slice, and the card-to-card spread of one local-BA
+         slice (two runs on the same inputs). It fails unless the final
+         state is OK, all 130 frames are recorded, the local-BA slice gives
+         the same bits twice, >= 10 keyframes were inserted, the
          counters (zeroed before it) show each kernel's fixed launches per
          tracked frame, a frame that services a local-BA slice and one that
          services a fusion slice make no synchronizing call outside the
-         batched decision read, and the ATE is at most the JAX reference's
-         (REF_ATE_M) plus 5 mm.
+         batched decision read, each slice alone captures in a CUDA graph
+         (capture refuses any host read or stream wait) and, where its
+         stream operations fit the launch queue (measured), returns before
+         a 400 ms sleep kernel ends, and the ATE is at most the JAX
+         reference's (REF_ATE_M) plus 5 mm.
 Phase 5  the card against the CPU for the loop (loop closing on, the
          default): the small configuration (240x376, 600 features, 8
          keyframe slots) over 16 frames with decision_batch=1 on both;
@@ -62,18 +67,39 @@ Phase 6  the loop-closure pass at bench scale (bench.py's
          detection, one GBA chunk and the correction, the host reads of
          every loop and GBA frame, the card-to-card spread of one GBA
          chunk, each kernel's launches over the pass and the peak memory.
-         It fails unless the closures equal the JAX reference's (REF_LOOP),
-         the final state is OK, the ATE is at most the reference's plus 5
+         It fails unless the closures, the frames decided lost and the
+         relocalizations equal the JAX reference's (REF_LOOP), the final
+         state is OK, the ATE is at most the reference's plus 5
          mm, and no frame makes a host read beyond the reference's own
          (one per verification, hypothesis step and drift-gate check, two
          per correction, one per GBA chunk, two per relocalization search
          and per candidate tried). ``masked_best2`` is then held
          exactly to its plain version at the inputs of each hypothesis
          refinement of the pass (one device kernel per call), and timed.
+Phase 7  the Atlas merge pass at bench scale: the scenario of the JAX
+         package's tests/test_map_merge.py (40 strafe frames, a flush, 22
+         black frames that shelve the map, poses 8-21 replayed, a flush)
+         through the same SlamSystem (loop closing on) with a keyframe at
+         least every 3 frames, after a warm-up pass. Blocks on each call's
+         pose and prints the merge (frame, pair, the call that ran it, its
+         wall ms and host reads), the maps and keyframes after it, the
+         merges the gate rejected, the live camera-centre error against
+         pose 21 and the mean error of the last 10 trajectory centres
+         against poses 12-21, frame wall p50/p99, the device ms of one
+         ``verify_merge``, ``_concat_maps``, merge pose graph and weld BA,
+         each kernel's launches over the pass and the peak memory. It fails
+         unless it merges once at the JAX reference's pair with its
+         keyframe and map counts (REF_MERGE), the final state is OK, the
+         errors are within the reference's plus 2 cm (live) and 3 cm
+         (tail), and no call makes a host read beyond the reference's own
+         (MERGE_REF_READS, and phase 6's for the loop and lost path).
+         ``masked_best2`` is then held exactly to its plain version at the
+         inputs of the merge verification's tracking refinement, and timed.
 
 The last stdout line is {"ok": true, "device": {...}}; the line before it
 lists every kernel with its launches, error, times and bound, and the
-launch floor (``launch_floor_ms``). Any failure
+launch floor (``launch_floor_ms``); a line before those gives each phase's
+seconds. Any failure
 raises, so the script exits non-zero and prints no result.
 """
 
@@ -82,6 +108,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import dataclasses
 import glob
 import json
 import os
@@ -135,11 +162,42 @@ SMALL_CLOSURE = dict(frames=84, speed=0.05, inject_at=42, min_gap=3)
 # with asynchronous dispatch off by tools/jax_loop_closure_ref.py: one loop
 # closed at keyframe 17 against candidate 4 (20.07 deg, 0.054 m; accepted by
 # hypothesis refinement) by the loop slice serviced at frame 146; 3 GBA
-# chunks, 2 hypothesis steps, 2 verifications; 18 keyframes, final state
-# OK, 2653 landmarks; ATE over all 150 frames 0.069941 m.
+# chunks, 2 hypothesis steps, 2 verifications; 2 frames decided lost after
+# the correction, both relocalized (at frame 148); 18 keyframes, final
+# state OK, 2653 landmarks; ATE over all 150 frames 0.069941 m.
 REF_LOOP = dict(closures=[(17, 4)], source="hyp", corrected_at_frame=146, gba_chunks=3,
-                hypothesis_steps=2, verifications=2, keyframes=18,
+                hypothesis_steps=2, verifications=2, lost_frames=2, relocalizations=2, keyframes=18,
                 ate_m=0.06994095752781777)
+# Phase 7: the Atlas merge pass, the scenario of the JAX package's
+# tests/test_map_merge.py at bench scale: bench.py's stereo configuration
+# with a keyframe at least every 3 frames; 40 strafe frames at 0.03
+# m/frame (times k/20) and a decision flush; 22 black frames (the hard
+# loss: the map, >= 10 keyframes, is shelved after 20 lost frames); strafe
+# poses 8-21 replayed and a decision flush.
+MERGE_FIRST, MERGE_BLACK, MERGE_REPLAY, MERGE_SPEED, MERGE_KF_GAP = 40, 22, (8, 22), 0.03, 3
+# The JAX reference (its SlamSystem, defaults) on this scenario, run on a
+# CPU with asynchronous dispatch off by tools/jax_merge_ref.py: 14
+# keyframes before the blackout, 20 frames decided lost, no relocalization;
+# one merge probe (candidate search, verification, gate check), run by the
+# final decision flush after frame 75, welding keyframe 4 of the new map to
+# keyframe 7 of the shelved one; 1 map and 19 keyframes after it, no merge
+# rejected by the gate; final state OK; the live camera centre 6.32 mm
+# from pose 21, the last 10 trajectory centres 3.23 mm from poses 12-21 on
+# average.
+REF_MERGE = dict(merge_frame=75, pair=(4, 7), keyframes=19, maps=1, keyframes_before_blackout=14,
+                 merges_rejected_gate=0, candidate_searches=1, verifications=1, gate_checks=1, lost_frames=20,
+                 relocalizations=0, live_centre_err_m=0.006322616711258888,
+                 tail_mean_err_m=0.0032337591983377934)
+MERGE_LIVE_MARGIN, MERGE_TAIL_MARGIN = 0.02, 0.03
+# host reads of the reference's merge path, counted in its code
+# (slam/map_merging.py): the candidate search reads its scores (1); a
+# verification its PnP and tracking-refinement inlier counts (2); the gate the
+# live rotation and translation, the transform's rotation twice and its
+# translation, the new map's keyframe rotations and translations (7); an
+# executed merge the landmark overflow, the keyframe count and the
+# keyframe remap three times (5); shelving a map the live pose (2)
+MERGE_REF_READS = dict(detect_merge_candidate=1, verify_merge=2, _merge_gate_allows=7,
+                       merge_into_shelved=5, _create_map_in_atlas=2)
 # H100 SXM (NVIDIA data sheet, 700 W): HBM3 at 3.35 TB/s, and 67 TFLOP/s
 # fp32 on the CUDA cores, which counts an FMA as two: 33.5 T fp32
 # instructions/s (132 SMs x 128 lanes x 1.98 GHz), also the rate at which
@@ -249,6 +307,66 @@ def host_ms_behind_sleep(fn):
     host_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
     return host_ms
+
+
+def launch_queue_capacity(limit=4096):
+    """How many launches the host can queue behind a busy device before a
+    launch blocks: empty kernels enqueued behind a SLEEP_MS sleep kernel,
+    counted until one launch takes a quarter of the sleep."""
+    from orb_slam3_detailed_comments_kor_tpu_torch.ops import _cuda
+
+    _cuda.noop()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(SLEEP_MS * 1e-3 * 2e9))  # ~2 GHz SM clock
+    n = limit
+    for i in range(limit):
+        t0 = time.perf_counter()
+        _cuda.noop()
+        if (time.perf_counter() - t0) * 1e3 > 0.25 * SLEEP_MS:
+            n = i
+            break
+    torch.cuda.synchronize()
+    return n
+
+
+# the runtime calls that put work on a stream
+STREAM_OPS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cudaMemsetAsync", "cudaMemcpyAsync")
+
+
+def stream_ops(fn):
+    """The launches, fills and copies one call of ``fn()`` puts on the
+    stream, from torch.profiler's record of the CUDA runtime calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+    torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.name in STREAM_OPS)
+
+
+def graph_capture_error(fn):
+    """None if one call of ``fn()`` can be captured in a CUDA graph, else
+    the error. Capture refuses any call that waits on the stream or reads
+    the device (``.item()``, a copy to or from pageable memory, a stream
+    or event synchronization), so a call that captures makes no host read."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture stream, as torch asks
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            fn()
+    except Exception as e:  # the capture's verdict, reported by the caller
+        torch.cuda.synchronize()
+        return repr(e)[:300]
+    del graph
+    torch.cuda.synchronize()
+    return None
 
 
 def bound(nbytes, ops, **counts):
@@ -386,7 +504,8 @@ def device_kernels(fn, attempts=3):
     host milliseconds apart: the profiler can drop a short kernel at the
     edge of its capture window, so it must report both brackets, and what
     lies between them is the call's. A capture that lost a bracket is
-    taken again, up to ``attempts`` times."""
+    taken again, up to ``attempts`` times; if none kept both, the call's
+    device work is counted in a CUDA graph (``graph_device_nodes``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -405,7 +524,49 @@ def device_kernels(fn, attempts=3):
         names = [e.name for e in on_device]
         if len(names) >= 2 and "noop_kernel" in names[0] and "noop_kernel" in names[-1]:
             return names[1:-1]
-    raise AssertionError(f"the profiler did not record the empty kernels around the call: {names}")
+        time.sleep(0.5)
+    # the profiler recorded no bracket in any attempt: count the call's
+    # device work in a CUDA graph instead, whose nodes are what one call puts
+    # on the stream (no names there)
+    log(f"  the profiler recorded {names} around the call {attempts} times; counting its device work "
+        "in a CUDA graph")
+    return [f"{kind} (CUDA graph node)" for kind in graph_device_nodes(fn)]
+
+
+# CUgraphNodeType values of the device work a stream call can put in a graph
+GRAPH_NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset"}
+
+
+def graph_device_nodes(fn):
+    """The kinds of the device nodes (kernel, memcpy, memset) of one call
+    of ``fn()`` captured in a CUDA graph, in ``cuGraphGetNodes``' order."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture stream, as torch asks
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    libcuda = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if libcuda.cuGraphGetNodes(handle, None, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if n.value and libcuda.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        if libcuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        if kind.value in GRAPH_NODE_KINDS:
+            kinds.append(GRAPH_NODE_KINDS[kind.value])
+    del graph
+    torch.cuda.synchronize()
+    return kinds
 
 
 def build_baseline(csrc):
@@ -760,14 +921,9 @@ def loop_closure_pass(cfg, frames, dev, counters):
 
     def on_frame(i, slam, call):
         nonlocal counting
-        if not counting:  # count this system's drift-gate and relocalization calls
+        if not counting:  # count this system's drift-gate and lost-path calls
             counting = True
-            for name, key in (("_loop_gate_allows", "gate"), ("_relocalize_in", "relocalize_in"),
-                              ("_reloc_attempt", "reloc_attempt")):
-                def counted_method(*a, _fn=getattr(slam, name), _key=key, **k):
-                    cur[_key] = cur.get(_key, 0) + 1
-                    return _fn(*a, **k)
-                setattr(slam, name, counted_method)
+            count_system_calls(slam, cur)
         kind = slam._bg_queue[0][0] if slam._bg_queue else (
             "gba_chunk" if slam._gba_chunks_left > 0 else "tracking")
         cur.clear()
@@ -803,6 +959,38 @@ def loop_closure_pass(cfg, frames, dev, counters):
     rec["launches"] = {k: fn.launches for k, fn in counters.items()}
     rec["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
     return slam, kf_at, rec
+
+
+def local_ba_spread(slice_fn, ms_in):
+    """The largest differences between two runs of a local-BA slice on the
+    same inputs: pose translations (m), rotation entries, landmark
+    positions (m) and the number of observation slots that differ; all 0
+    when the slice is deterministic."""
+    a, b = slice_fn(), slice_fn()
+    moved = int((a.obs_lm != ms_in.obs_lm).sum()) + int((a.lm_pos != ms_in.lm_pos).any(-1).sum())
+    if moved == 0:
+        raise AssertionError("the local-BA slice changed nothing: no spread to measure")
+    return dict(pose_t_m=max_abs_err(a.kf_t_cw, b.kf_t_cw), pose_R=max_abs_err(a.kf_R_cw, b.kf_R_cw),
+                points_m=max_abs_err(a.lm_pos, b.lm_pos), obs_differ=int((a.obs_lm != b.obs_lm).sum()))
+
+
+def count_system_calls(slam, cur, more=()):
+    """Count into ``cur`` the calls of ``slam``'s drift gate ("gate"), its
+    lost path ("lost", "relocalize_in", "reloc_attempt", and "relocalized"
+    for each successful relocalization) and the (method, key) pairs of
+    ``more``."""
+    for name, key in (("_loop_gate_allows", "gate"), ("_relocalize_in", "relocalize_in"),
+                      ("_reloc_attempt", "reloc_attempt"), ("_handle_lost", "lost"), *more):
+        def counted_method(*a, _fn=getattr(slam, name), _key=key, **k):
+            cur[_key] = cur.get(_key, 0) + 1
+            return _fn(*a, **k)
+        setattr(slam, name, counted_method)
+
+    def counted_relocalize(frame, _fn=slam._relocalize):
+        ok = _fn(frame)
+        cur["relocalized"] = cur.get("relocalized", 0) + int(ok)
+        return ok
+    slam._relocalize = counted_relocalize
 
 
 def loop_host_read_allowance(calls):
@@ -889,7 +1077,8 @@ def phase6(dev, counters, per_kernel, smi):
         closures=closures, last_closure=list(getattr(lc6, "last_closure", ())), warm_pass_closure=warm_closure,
         corrected_at_frame=corr_frames, ref=REF_LOOP, gba_chunks=rec["calls"].get("gba_chunk", 0),
         hypothesis_steps=rec["calls"].get("hypothesis_step", 0), verifications=rec["calls"].get("verify", 0),
-        keyframes=slam6.n_kf, keyframe_frames=kf_at6, stats=slam6.stats,
+        lost_frames=rec["calls"].get("lost", 0), relocalizations=rec["calls"].get("relocalized", 0),
+        relocalized_at_frame=[f["frame"] for f in fr if f["calls"].get("relocalized")], keyframes=slam6.n_kf, keyframe_frames=kf_at6, stats=slam6.stats,
         landmarks=int(slam6.ms.lm_valid.sum()), ate_m=ate6,
         frame_p50_ms=float(np.percentile(lat6, 50)), frame_p99_ms=float(np.percentile(lat6, 99)),
         frame_max_ms=float(lat6.max()), correction_frame_ms=corr_ms, frames_per_s=LOOP6_FRAMES / pass6_s,
@@ -913,6 +1102,9 @@ def phase6(dev, counters, per_kernel, smi):
         bad.append(f"{len(slam6.trajectory)} frames recorded")
     if closures != REF_LOOP["closures"]:
         bad.append(f"closures {closures}, the reference closes {REF_LOOP['closures']}")
+    for key in ("lost_frames", "relocalizations"):
+        if loop6[key] != REF_LOOP[key]:
+            bad.append(f"{key} {loop6[key]}, the reference's {REF_LOOP[key]}")
     if not ate6 <= REF_LOOP["ate_m"] + ATE_MARGIN:
         bad.append(f"ATE {ate6} m")
     for r in reads:
@@ -930,6 +1122,284 @@ def phase6(dev, counters, per_kernel, smi):
     return rec
 
 
+def merge_config(small=False):
+    """Phase 7's configuration: bench.py's stereo setup (or, ``small``, the
+    small loop-closure one) with a keyframe at least every MERGE_KF_GAP
+    frames."""
+    cfg = loop_config(small=small, closure=small)
+    return dataclasses.replace(cfg, tracking=dataclasses.replace(cfg.tracking, max_frames_between_kf=MERGE_KF_GAP))
+
+
+def merge_schedule(frames, black):
+    """Phase 7's calls in order: ("frame", (left, right), time) or
+    ("flush",)."""
+    steps, k = [], 0
+    for i in range(MERGE_FIRST):
+        steps.append(("frame", frames[i], k / FPS))
+        k += 1
+    steps.append(("flush",))
+    for _ in range(MERGE_BLACK):
+        steps.append(("frame", (black, black), k / FPS))
+        k += 1
+    for i in range(*MERGE_REPLAY):
+        steps.append(("frame", frames[i], k / FPS))
+        k += 1
+    steps.append(("flush",))
+    return steps
+
+
+def run_merge_steps(slam, steps, on_call=None):
+    """Feed phase 7's calls to ``slam``; ``on_call(j, slam, call)`` may
+    wrap each one."""
+    for j, st in enumerate(steps):
+        if st[0] == "frame":
+            call = lambda _f=st[1], _t=st[2]: slam.track_stereo(_f[0], _f[1], _t)
+        else:
+            call = slam.flush_decisions
+        on_call(j, slam, call) if on_call else call()
+
+
+@contextlib.contextmanager
+def patched(targets):
+    """Within the block ``obj.name`` is ``make(original)`` for each
+    (obj, name, make) of ``targets``."""
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in targets]
+    for obj, name, make in targets:
+        setattr(obj, name, make(getattr(obj, name)))
+    try:
+        yield
+    finally:
+        for obj, name, fn in reversed(saved):
+            setattr(obj, name, fn)
+
+
+def merge_pass(cfg, steps, dev, counters):
+    """Phase 7's recorded pass: ``steps`` through a new SlamSystem, each
+    call under the sync debug mode (the batched decision and delayed
+    detection reads left out) and blocking on the pose. Records per call
+    its wall ms, synchronizing calls and the merge, loop and lost-path
+    calls in it; the merge (call, frame, pair); the inputs of the first
+    ``verify_merge``, ``_concat_maps``, merge pose graph and weld BA; the
+    ``masked_best2`` inputs of each verification's tracking refinement; and
+    each kernel's launches over the pass."""
+    from orb_slam3_detailed_comments_kor_tpu_torch.ops import cuda_matching
+    from orb_slam3_detailed_comments_kor_tpu_torch.optim import pose_graph
+    from orb_slam3_detailed_comments_kor_tpu_torch.slam import loop_closing, map_merging, tracking
+    from orb_slam3_detailed_comments_kor_tpu_torch.slam.system import SlamSystem
+    from orb_slam3_detailed_comments_kor_tpu_torch.utils.host_read import HostRead
+
+    rec = dict(calls=[], merges=[], inputs={}, refine_inputs=[], totals={})
+    cur = {}
+    in_merge = []
+
+    def count(key, keep_inputs=False, during_merge=False):
+        def make(fn):
+            def wrapper(*a, **k):
+                if during_merge and not in_merge:
+                    return fn(*a, **k)
+                cur[key] = cur.get(key, 0) + 1
+                if keep_inputs:
+                    rec["inputs"].setdefault(key, (a, k))
+                return fn(*a, **k)
+            return wrapper
+        return make
+
+    def verify(fn):
+        def wrapper(*a, **k):
+            cur["verify_merge"] = cur.get("verify_merge", 0) + 1
+            rec["inputs"].setdefault("verify_merge", (a, k))
+            kern, spy_calls = cuda_matching.fused_masked_best2, []
+
+            def spy(*args):
+                spy_calls.append(args)
+                return kern(*args)
+
+            spy.launches = 0  # the wrapper counts through its module name: the spy, here
+            cuda_matching.fused_masked_best2 = spy
+            try:
+                return fn(*a, **k)
+            finally:
+                cuda_matching.fused_masked_best2 = kern
+                kern.launches += spy.launches
+                rec["refine_inputs"].extend(spy_calls)
+        return wrapper
+
+    def weld(fn):
+        def wrapper(slam_, shelf_idx, kf_cur, kf_old, R_d, t_d):
+            cur["merge_into_shelved"] = cur.get("merge_into_shelved", 0) + 1
+            in_merge.append(True)
+            try:
+                done = fn(slam_, shelf_idx, kf_cur, kf_old, R_d, t_d)
+            finally:
+                in_merge.pop()
+            rec["merges"].append(dict(call=cur["call"], frame=slam_.n_frames - 1, pair=(kf_cur, kf_old), done=done))
+            return done
+        return wrapper
+
+    def unwatched_numpy(fn):
+        def wrapper(self):
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("default")
+            try:
+                return fn(self)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+        return wrapper
+
+    lc = loop_closing.LoopCloser
+    targets = [(map_merging, "detect_merge_candidate", count("detect_merge_candidate")),
+               (map_merging, "verify_merge", verify),
+               (map_merging, "_merge_gate_allows", count("_merge_gate_allows")),
+               (map_merging, "merge_into_shelved", weld),
+               (map_merging, "_concat_maps", count("_concat_maps", keep_inputs=True)),
+               (pose_graph, "optimize_pose_graph_se3", count("pose_graph", True, during_merge=True)),
+               (tracking, "local_ba_step", count("weld_ba", True, during_merge=True)),
+               (HostRead, "numpy", unwatched_numpy)]
+    targets += [(lc, n, count(n)) for n in ("verify", "hypothesis_step", "correct", "gba_chunk")]
+    slam = SlamSystem(cfg, device=dev)
+    count_system_calls(slam, cur, (("_create_map_in_atlas", "_create_map_in_atlas"),
+                                   ("_stereo_initialize", "initialize")))
+
+    def on_call(j, slam_, call):
+        cur.clear()
+        cur["call"] = j
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                call()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        slam_.t_cw.cpu()  # block on the pose, as bench.py's latency pass does
+        ms_wall = (time.perf_counter() - t0) * 1e3
+        syncs = [str(w.message).splitlines()[0] for w in caught if SYNC_WARNING in str(w.message)]
+        calls = {k: v for k, v in cur.items() if k != "call"}
+        for k, v in calls.items():
+            rec["totals"][k] = rec["totals"].get(k, 0) + v
+        rec["calls"].append(dict(call=j, kind=steps[j][0], frame=slam_.n_frames - 1, ms=ms_wall, syncs=len(syncs),
+                                 sync_calls=sorted(set(syncs))[:3], calls=calls, state=slam_.state,
+                                 maps=1 + len(slam_.atlas_maps)))
+
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    with patched(targets):
+        run_merge_steps(slam, steps, on_call)
+    rec["launches"] = {k: fn.launches for k, fn in counters.items()}
+    rec["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    return slam, rec
+
+
+def merge_host_read_allowance(calls):
+    """The host reads the reference makes in a call with these calls: its
+    merge path's (MERGE_REF_READS), its loop and lost path's
+    (``loop_host_read_allowance``) and one per stereo initialization (the
+    depth count)."""
+    return (sum(n * calls.get(k, 0) for k, n in MERGE_REF_READS.items()) + loop_host_read_allowance(calls)
+            + calls.get("initialize", 0))
+
+
+def phase7(dev, counters, per_kernel, smi):
+    """Phase 7: the Atlas merge pass at bench scale (see the module
+    docstring). Prints its JSON line, raises on a failed check, holds
+    ``masked_best2`` against its plain version at the merge verification's
+    recorded inputs (into ``per_kernel``) and returns the pass's record."""
+    from orb_slam3_detailed_comments_kor_tpu_torch.optim import pose_graph
+    from orb_slam3_detailed_comments_kor_tpu_torch.ops import cuda_matching
+    from orb_slam3_detailed_comments_kor_tpu_torch.slam import map_merging, tracking
+    from orb_slam3_detailed_comments_kor_tpu_torch.slam import system as slam_mod
+
+    cfg = merge_config()
+    t_p7 = time.time()
+    gt, frames = render_loop_sequence(cfg, MERGE_FIRST, dev, "strafe", MERGE_SPEED)
+    steps = merge_schedule(frames, torch.zeros((cfg.camera.height, cfg.camera.width), device=dev))
+    warm = slam_mod.SlamSystem(cfg, device=dev)
+    run_merge_steps(warm, steps)
+    warm_maps, warm_kf = 1 + len(warm.atlas_maps), warm.n_kf
+    del warm
+    torch.cuda.synchronize()
+    log(f"phase 7: rendered {MERGE_FIRST} frames and ran a warm-up pass in {time.time() - t_p7:.1f} s")
+    slam, rec = merge_pass(cfg, steps, dev, counters)
+    calls = rec["calls"]
+    frame_ms = np.array([c["ms"] for c in calls if c["kind"] == "frame"][5:])
+    merges = [m for m in rec["merges"] if m["done"]]
+    merge_call = calls[merges[0]["call"]] if merges else None
+    _, centers, _ = slam.trajectory_arrays()
+    last = MERGE_REPLAY[1]
+    live_err = float(np.linalg.norm(slam.camera_center() - gt[last - 1]))
+    tail_err = float(np.linalg.norm(centers[-10:] - gt[last - 10:last], axis=1).mean())
+    # the matcher at the merge verification's tracking refinement: exact, one
+    # kernel a call
+    run_checks([("masked_best2", f"{a.shape[0]}x{b.shape[0]} merge verification (merge pass call {i})",
+                 cuda_matching.fused_masked_best2, cuda_matching.fused_masked_best2_plain, (a, b, m),
+                 matcher_bound(a, b, m), None) for i, (a, b, m) in enumerate(rec["refine_inputs"])],
+               counters, per_kernel)
+    # one call of each merge step alone, on the device, with the pass's inputs
+    fns = {"verify_merge": map_merging.verify_merge, "_concat_maps": map_merging._concat_maps,
+           "pose_graph": pose_graph.optimize_pose_graph_se3, "weld_ba": tracking.local_ba_step}
+    slice_ms = {k: profiled_device_ms(lambda _f=fns[k], _a=a, _k=kw: _f(*_a, **_k))
+                for k, (a, kw) in rec["inputs"].items() if k in fns}
+    reads = [dict(call=c["call"], kind=c["kind"], frame=c["frame"], syncs=c["syncs"],
+                  allowed=merge_host_read_allowance(c["calls"]), calls=c["calls"], sync_calls=c["sync_calls"])
+             for c in calls[1:] if c["syncs"] or c["calls"]]
+    t = rec["totals"]
+    merge7 = dict(
+        frames=len(slam.trajectory), state=slam.state, maps=1 + len(slam.atlas_maps), keyframes=slam.n_kf,
+        merges=rec["merges"], merge_frame=merges[0]["frame"] if merges else None,
+        merge_call_kind=merge_call["kind"] if merge_call else None,
+        pair=list(merges[0]["pair"]) if merges else None, ref=REF_MERGE,
+        merges_rejected_gate=slam.stats.get("merges_rejected_gate", 0),
+        candidate_searches=t.get("detect_merge_candidate", 0), verifications=t.get("verify_merge", 0),
+        gate_checks=t.get("_merge_gate_allows", 0), lost_frames=t.get("lost", 0),
+        relocalizations=t.get("relocalized", 0), stats=slam.stats, warm_pass=dict(maps=warm_maps, keyframes=warm_kf),
+        live_centre_err_m=live_err, tail_mean_err_m=tail_err,
+        frame_p50_ms=float(np.percentile(frame_ms, 50)), frame_p99_ms=float(np.percentile(frame_ms, 99)),
+        frame_max_ms=float(frame_ms.max()), merge_call_ms=merge_call["ms"] if merge_call else None,
+        merge_call_host_reads=merge_call["syncs"] if merge_call else None,
+        merge_call_allowed_reads=merge_host_read_allowance(merge_call["calls"]) if merge_call else None,
+        merge_call_calls=merge_call["calls"] if merge_call else None,
+        slice_device_ms=slice_ms, host_reads=reads, refine_matcher_calls=len(rec["refine_inputs"]),
+        launches=rec["launches"], peak_mib=rec["peak_mib"],
+    )
+    log(f"phase 7 ({smi}): " + json.dumps(merge7))
+    log(f"phase 7: merge {merge7['pair']} at frame {merge7['merge_frame']} ({merge7['merge_call_kind']} call, "
+        f"{merge7['merge_call_ms']} ms, {merge7['merge_call_host_reads']} host reads; reference {REF_MERGE['pair']} "
+        f"at {REF_MERGE['merge_frame']}); {merge7['maps']} map, {slam.n_kf} keyframes; live centre error "
+        f"{live_err * 1e3:.2f} mm, tail {tail_err * 1e3:.2f} mm (reference {REF_MERGE['live_centre_err_m'] * 1e3:.2f}, "
+        f"{REF_MERGE['tail_mean_err_m'] * 1e3:.2f}); frame wall p50 {merge7['frame_p50_ms']:.2f} ms p99 "
+        f"{merge7['frame_p99_ms']:.2f} ms; " + ", ".join(f"{k} {v:.3f} ms" for k, v in slice_ms.items())
+        + f"; peak {rec['peak_mib']:.1f} MiB; phase 7 took {time.time() - t_p7:.1f} s")
+    bad = []
+    if not merges:
+        bad.append("no merge")
+    elif tuple(merges[0]["pair"]) != REF_MERGE["pair"] or len(merges) != 1:
+        bad.append(f"merges {rec['merges']}, the reference's {REF_MERGE['pair']}")
+    if slam.n_kf != REF_MERGE["keyframes"] or merge7["maps"] != REF_MERGE["maps"]:
+        bad.append(f"{merge7['maps']} maps and {slam.n_kf} keyframes, the reference's {REF_MERGE['maps']} and "
+                   f"{REF_MERGE['keyframes']}")
+    if slam.state != slam_mod.TrackingState.OK:
+        bad.append(f"final state {slam.state}")
+    if not live_err <= REF_MERGE["live_centre_err_m"] + MERGE_LIVE_MARGIN:
+        bad.append(f"live centre error {live_err} m")
+    if not tail_err <= REF_MERGE["tail_mean_err_m"] + MERGE_TAIL_MARGIN:
+        bad.append(f"tail error {tail_err} m")
+    for r in reads:
+        if r["syncs"] > r["allowed"]:
+            bad.append(f"call {r['call']} ({r['kind']}, frame {r['frame']}): {r['syncs']} host reads, the "
+                       f"reference's {r['allowed']} ({r['calls']}; {r['sync_calls']})")
+    n_tracked = sum(1 for c in calls if c["kind"] == "frame")
+    for k in LAUNCHES_PER_FRAME:
+        if rec["launches"][k] < n_tracked - MERGE_BLACK - 2:
+            bad.append(f"{k}: {rec['launches'][k]} launches over the pass")
+    if not rec["refine_inputs"]:
+        bad.append("no merge verification ran masked_best2")
+    if bad:
+        raise AssertionError("phase 7: " + "; ".join(bad))
+    return rec
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--baseline-csrc", default=None,
@@ -944,6 +1414,7 @@ def main() -> int:
     from orb_slam3_detailed_comments_kor_tpu_torch.slam import map_state as msx
 
     dev = torch.device(DEVICE)
+    phase_s, t_phase = {}, time.time()
 
     # ---- phase 0: card + build -------------------------------------------
     smi = subprocess.run(
@@ -964,6 +1435,9 @@ def main() -> int:
         t0 = time.time()
         base_lib = build_baseline(os.path.abspath(args.baseline_csrc))
         log(f"phase 0: baseline kernels of {args.baseline_csrc} built in {time.time() - t0:.1f} s")
+
+    phase_s["0"] = time.time() - t_phase
+    t_phase = time.time()
 
     # ---- scene, trajectory, camera ---------------------------------------
     cam = camera(dev)
@@ -1054,6 +1528,9 @@ def main() -> int:
     run_checks(checks, counters, per_kernel, base_lib)
     log("phase 1: every kernel equals its plain version exactly, edge cases included")
 
+    phase_s["1"] = time.time() - t_phase
+    t_phase = time.time()
+
     # ---- phase 2: the main path --------------------------------------------
     for fn in counters.values():
         fn.launches = 0
@@ -1116,6 +1593,9 @@ def main() -> int:
         f"wall median {statistics.median(wall_ms[4:]):.2f} ms; peak device memory {peak:.1f} MiB; "
         f"launches {launches} (frame 0 {launches0}, per tracked frame {per_frame})")
 
+    phase_s["2"] = time.time() - t_phase
+    t_phase = time.time()
+
     # ---- phase 3: the card agrees with the CPU on frame 1 -----------------
     cpu = torch.device("cpu")
     ms_cpu = msx.map_state_from_numpy(ms0_np, cpu)
@@ -1132,6 +1612,8 @@ def main() -> int:
     if not (d_rot <= ROT_TOL and d_t <= TRANS_TOL and abs(n_c - n_g) <= max(3, 0.02 * n_c)
             and bool(ok_c) == ok_g):
         raise AssertionError("card and CPU disagree on frame 1")
+
+    phase_s["3"] = time.time() - t_phase
 
     # ---- phase 4: the SLAM loop at bench scale ----------------------------
     from orb_slam3_detailed_comments_kor_tpu_torch.eval import ate
@@ -1214,10 +1696,20 @@ def main() -> int:
         "cull_lm": lambda: tracking.cull_landmarks(ms_f),
     }
     loop["slice_device_ms"] = {k: profiled_device_ms(f) for k, f in slices.items()}
-    # and one call of each behind a long sleep kernel: a call that waited on
-    # the device anywhere (the sync debug mode misses some waits) returns
-    # only after the sleep ends
-    loop["slice_host_ms_behind_sleep"] = {k: host_ms_behind_sleep(f) for k, f in slices.items()}
+    # the card-to-card spread of one local-BA slice: two runs on the same inputs
+    loop["local_ba_spread"] = local_ba_spread(slices["local_ba_chunk"], ms_f)
+    # and one call of each captured in a CUDA graph, which refuses any call
+    # that waits on the stream or reads the device; and one call of each
+    # behind a long sleep kernel: a call that waited on the device anywhere
+    # (the sync debug mode misses some waits) returns only after the sleep
+    # ends. The sleep decides only for a call that queues fewer stream
+    # operations than the launch queue holds: past that, every launch
+    # waits for the device to free a slot.
+    loop["slice_graph_capture_error"] = {k: graph_capture_error(f) for k, f in slices.items()}
+    loop["launch_queue_capacity"] = launch_queue_capacity()
+    loop["slice_stream_ops"] = {k: stream_ops(f) for k, f in slices.items()}
+    loop["slice_host_ms_behind_sleep"] = {k: host_ms_behind_sleep(f) for k, f in slices.items()
+                                          if loop["slice_stream_ops"][k] < loop["launch_queue_capacity"]}
     loop["host_stage_ms"] = {k: {"count": v["count"], "p50_ms": v["p50_ms"], "max_ms": v["max_ms"],
                                  "total_ms": v["total_ms"]} for k, v in slam.timer.summary().items()}
     log(f"phase 4 ({smi}): " + json.dumps(loop))
@@ -1239,6 +1731,11 @@ def main() -> int:
     for slice_kind in ("local_ba_chunk", "fuse"):
         if slice_kind not in syncs or syncs[slice_kind][1] != 0:
             bad.append(f"{slice_kind}: synchronizing calls {syncs.get(slice_kind)}")
+    if any(v != 0 for v in loop["local_ba_spread"].values()):
+        bad.append(f"local BA differs between two runs on the same inputs: {loop['local_ba_spread']}")
+    for k, err in loop["slice_graph_capture_error"].items():
+        if err is not None:
+            bad.append(f"{k}: not capturable in a CUDA graph: {err}")
     for k, host_ms in loop["slice_host_ms_behind_sleep"].items():
         if host_ms >= 0.5 * SLEEP_MS:
             bad.append(f"{k}: returned after {host_ms:.1f} ms behind a {SLEEP_MS} ms sleep kernel")
@@ -1246,6 +1743,8 @@ def main() -> int:
         bad.append(f"ATE {ate_m} m")
     if bad:
         raise AssertionError("phase 4: " + "; ".join(bad))
+
+    phase_s["4"] = time.time() - t_p4
 
     # ---- phase 5: the card against the CPU for the loop ------------------
     t_p5 = time.time()
@@ -1259,9 +1758,18 @@ def main() -> int:
         f"{np.round(d_c * 1e3, 3).tolist()}; {time.time() - t_p5:.1f} s")
     if kf_card != kf_host or not (d_c.max() <= TRANS_TOL and d_r.max() <= ROT_TOL):
         raise AssertionError("phase 5: card and CPU disagree on the loop")
+    phase_s["5"] = time.time() - t_p5
 
     # ---- phase 6: the loop-closure pass at bench scale ---------------------
+    t_p6 = time.time()
     rec6 = phase6(dev, counters, per_kernel, smi)
+    phase_s["6"] = time.time() - t_p6
+
+    # ---- phase 7: the Atlas merge pass at bench scale ---------------------
+    t_p7 = time.time()
+    rec7 = phase7(dev, counters, per_kernel, smi)
+    phase_s["7"] = time.time() - t_p7
+    log("phase seconds: " + json.dumps(phase_s))
 
     sources = {
         "fast_nms": ("csrc/fast_nms.cu", "orb_slam3_detailed_comments_kor_tpu/ops/pallas_fast.py:149"),
@@ -1277,7 +1785,7 @@ def main() -> int:
             "source": "orb_slam3_detailed_comments_kor_tpu_torch/" + src, "replaces": rep,
             "launches": launches[k], "launches_per_frame": int(per_frame[k]),  # checked whole
             "launches_slam_loop": launches4[k], "launches_per_frame_slam_loop": int(per_frame4[k]),
-            "launches_loop_closure_pass": rec6["launches"][k],
+            "launches_loop_closure_pass": rec6["launches"][k], "launches_merge_pass": rec7["launches"][k],
             "max_abs_err": info["max_abs_err"], "ms": main_case["ms"],
             "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
             "bound_by": main_case["bound_by"], "library_ms": main_case["library_ms"],

@@ -153,13 +153,24 @@ class BAResult(NamedTuple):
     inlier: torch.Tensor   # [O] chi2-gate at the end
 
 
+def _normal_segments(obs, K: int, L: int):
+    """The segment layouts of ``_build_normal_blocks``' three scatters
+    (keyframe, landmark, keyframe-landmark pair), made once per solve; None
+    on the CPU, whose ``index_add_`` adds in row order."""
+    if not obs.kf.is_cuda:
+        return None
+    return _segments(obs.kf, K), _segments(obs.lm, L), _segments(obs.kf * L + obs.lm, K * L)
+
+
 def _build_normal_blocks(R_cw, t_cw, X, obs, cam_params, bf, w_total, row_mask,
-                         cam_model="pinhole", rig=None):
+                         cam_model="pinhole", rig=None, segs=None):
     """Per-obs Jacobian blocks + scatter-accumulated Hpp/Hll/b.
 
     Returns (Hpp [K,6,6], Hll [L,3,3], bp [K,6], bl [L,3], Wpl [K,6,L,3]).
-    The scatters are ``index_add_``: on the card their float adds land in
-    no fixed order, so the sums agree with the reference to rounding.
+    The scatters are ``index_add_``, which adds in row order on the CPU;
+    with ``segs`` (``_normal_segments``, on the card, where its float
+    atomics land in no fixed order) they are segmented scans, the same adds
+    in the same order on every run.
     """
     if rig is not None:
         raise NotImplementedError("camera rigs are not ported")
@@ -171,13 +182,25 @@ def _build_normal_blocks(R_cw, t_cw, X, obs, cam_params, bf, w_total, row_mask,
     r, _, _ = factors.reproj_residuals(R_cw, t_cw, X, obs, cam_params, bf, cam_model)
     JpT, JlT = Jp.transpose(1, 2), Jl.transpose(1, 2)
     w3 = w_total[:, None, None]
-    zeros = lambda *shape: torch.zeros(shape, dtype=X.dtype, device=X.device)
-    Hpp = zeros(K, 6, 6).index_add_(0, obs.kf, w3 * (JpT @ Jp))
-    Hll = zeros(L, 3, 3).index_add_(0, obs.lm, w3 * (JlT @ Jl))
-    bp = zeros(K, 6).index_add_(0, obs.kf, -w_total[:, None] * (JpT @ r[..., None])[..., 0])
-    bl = zeros(L, 3).index_add_(0, obs.lm, -w_total[:, None] * (JlT @ r[..., None])[..., 0])
-    # W[k, :, l, :] += w JpᵀJl, scattered over the flat (k, l) pairs
-    Wpl = zeros(K * L, 6, 3).index_add_(0, obs.kf * L + obs.lm, w3 * (JpT @ Jl))
+    rows = (w3 * (JpT @ Jp), w3 * (JlT @ Jl), -w_total[:, None] * (JpT @ r[..., None])[..., 0],
+            -w_total[:, None] * (JlT @ r[..., None])[..., 0], w3 * (JpT @ Jl))
+    if segs is not None:
+        # one scan per segment layout: Hpp with bp, Hll with bl, then W
+        seg_kf, seg_lm, seg_pl = segs
+        O = rows[0].shape[0]
+        kf_sums = _segment_sum(torch.cat([rows[0].reshape(O, 36), rows[2]], 1), seg_kf)
+        lm_sums = _segment_sum(torch.cat([rows[1].reshape(O, 9), rows[3]], 1), seg_lm)
+        Hpp, bp = kf_sums[:, :36].reshape(K, 6, 6), kf_sums[:, 36:]
+        Hll, bl = lm_sums[:, :9].reshape(L, 3, 3), lm_sums[:, 9:]
+        Wpl = _segment_sum(rows[4], seg_pl)
+    else:
+        zeros = lambda *shape: torch.zeros(shape, dtype=X.dtype, device=X.device)
+        Hpp = zeros(K, 6, 6).index_add_(0, obs.kf, rows[0])
+        Hll = zeros(L, 3, 3).index_add_(0, obs.lm, rows[1])
+        bp = zeros(K, 6).index_add_(0, obs.kf, rows[2])
+        bl = zeros(L, 3).index_add_(0, obs.lm, rows[3])
+        # W[k, :, l, :] += w JpᵀJl, scattered over the flat (k, l) pairs
+        Wpl = zeros(K * L, 6, 3).index_add_(0, obs.kf * L + obs.lm, rows[4])
     return Hpp, Hll, bp, bl, Wpl.view(K, L, 6, 3).permute(0, 2, 1, 3)
 
 
@@ -225,6 +248,7 @@ def bundle_adjust(
     R, t, Xc = R_cw, t_cw, X
     lam = torch.full((), 1e-4, dtype=dt_, device=dev)  # no host copy
     best_cost, _ = total_cost(R, t, Xc)
+    segs = _normal_segments(obs, K, L)
     for _ in range(iters):
         r, row_mask, depth_ok = factors.reproj_residuals(R, t, Xc, obs, cam_params, bf, cam_model)
         _, w_h, _ = _eval_weights(r, obs, use_huber)
@@ -232,7 +256,7 @@ def bundle_adjust(
         # freeze contributions of fixed variables by zeroing their Jacobians
         Hpp, Hll, bp, bl, Wpl = _build_normal_blocks(
             R, t, Xc, obs._replace(valid=obs.valid & depth_ok),
-            cam_params, bf, w, row_mask, cam_model,
+            cam_params, bf, w, row_mask, cam_model, segs=segs,
         )
         bp = bp * free_p[:, None]
         bl = bl * free_l[:, None]
@@ -293,9 +317,9 @@ def bundle_adjust(
 class _Segments(NamedTuple):
     """A sorted segment layout of one index vector, made once per solve:
     ``perm`` sorts the rows by index (stable), ``same[k]`` marks the
-    sorted rows whose row 2^k before lies in the same segment, ``ends``
-    is each segment's last sorted row and ``nonempty`` whether it has
-    one."""
+    sorted rows from 2^k on whose row 2^k before lies in the same segment,
+    ``ends`` is each segment's last sorted row and ``nonempty`` whether it
+    has one."""
     perm: torch.Tensor
     same: tuple
     ends: torch.Tensor
@@ -309,8 +333,7 @@ def _segments(idx: torch.Tensor, n: int) -> _Segments:
         0, idx, torch.ones_like(idx))
     same, d = [], 1
     while d < O:
-        same.append(torch.cat([torch.zeros((d,), dtype=torch.bool, device=idx.device),
-                               sidx[d:] == sidx[:-d]]))
+        same.append(sidx[d:] == sidx[:-d])
         d *= 2
     ends = torch.clamp(torch.cumsum(counts, 0) - 1, min=0)
     return _Segments(perm, tuple(same), ends, counts > 0)
@@ -327,9 +350,8 @@ def _segment_sum(vals: torch.Tensor, seg: _Segments) -> torch.Tensor:
     host.)"""
     v = vals[seg.perm]
     d = 1
-    for same in seg.same:
-        shifted = torch.cat([torch.zeros_like(v[:d]), v[:-d]])
-        v = v + torch.where(same.reshape((-1,) + (1,) * (v.dim() - 1)), shifted, 0.0)
+    for same in seg.same:  # three launches a step
+        v = torch.cat([v[:d], v[d:] + torch.where(same.reshape((-1,) + (1,) * (v.dim() - 1)), v[:-d], 0.0)])
         d *= 2
     out = v[seg.ends]
     return torch.where(seg.nonempty.reshape((-1,) + (1,) * (v.dim() - 1)), out, 0.0)

@@ -16,16 +16,18 @@ Counterpart of the reference's ``System`` (``src/System.cc``) and the host
 control of ``Tracking::Track()`` (``src/Tracking.cc:1718-2234``). All
 per-frame compute is ``tracking.full_frame_step`` on the device; the host
 reads the device at initialization (the stereo depth count), in the
-batched decision read, in ``_reclaim_kf_slots``, on the lost path, and in
-a loop slice where the reference does (a verification's or hypothesis
-step's inlier count, the drift gate's pose segment, the closure's log
-line, a GBA slice's cost). Background mapping work runs as bounded
+batched decision read, in ``_reclaim_kf_slots``, on the lost path, when a
+map is shelved (its merge prior), and in a loop or merge slice where the
+reference does (a verification's or hypothesis step's inlier count, the
+drift gate's pose segment, the closure's log line, a GBA slice's cost, the
+merge's scores, gate and remap). Background mapping work runs as bounded
 slices, one ahead of each frame's dispatch (``_service_background``), so a
 frame never waits behind a whole solve.
 
-Not in this slice: the Atlas merge (raises where the reference would
-schedule it), localization mode, the inertial, monocular, RGB-D and
-stereo-fisheye paths and map checkpoints.
+Also here: the Atlas merge (``map_merging.try_merge``, queued per keyframe
+while shelved maps exist), localization mode and map checkpoints
+(``save_map``/``load_map``, ``slam/checkpoint.py``). Not in this slice:
+the inertial, monocular, RGB-D and stereo-fisheye paths.
 """
 
 from __future__ import annotations
@@ -41,7 +43,8 @@ from orb_slam3_detailed_comments_kor_tpu_torch.models import camera as cam_mod
 from orb_slam3_detailed_comments_kor_tpu_torch.models import vocabulary as voc
 from orb_slam3_detailed_comments_kor_tpu_torch.ops import matching, ransac
 from orb_slam3_detailed_comments_kor_tpu_torch.ops import orb as orb_ops
-from orb_slam3_detailed_comments_kor_tpu_torch.slam import frontend
+from orb_slam3_detailed_comments_kor_tpu_torch.optim import ba
+from orb_slam3_detailed_comments_kor_tpu_torch.slam import checkpoint, frontend
 from orb_slam3_detailed_comments_kor_tpu_torch.slam import map_merging
 from orb_slam3_detailed_comments_kor_tpu_torch.slam import map_state as msx
 from orb_slam3_detailed_comments_kor_tpu_torch.slam import tracking
@@ -212,8 +215,8 @@ class SlamSystem:
         self._last_track_time = None
         # FIFO of deferred per-keyframe mapping slices (see _bg_push)
         self._bg_queue: List[tuple] = []
-        # Atlas: shelved maps (relocalization can switch back to one; the
-        # Atlas merge is not ported)
+        # Atlas: shelved maps (relocalization can switch back to one, and
+        # map_merging.try_merge welds the active map back into one)
         self.atlas_maps: List[dict] = []
         self.timer = StageTimer(enabled=False)
         # loop closing: the BoW database over the default vocabulary, and
@@ -225,6 +228,9 @@ class SlamSystem:
         self._gba_chunks_left = 0
         self._gba_chunks_run = 0
         self._gba_prev_cost = None
+        # localization mode, and its last tracked (frame, (R_cw, t_cw))
+        self.localization_only = False
+        self._loc_prev = None
 
     def _new_loop_closer(self) -> LoopCloser:
         cap = self.cfg.capacity
@@ -242,6 +248,24 @@ class SlamSystem:
     @property
     def baseline(self) -> float:
         return self.cfg.camera.bf / self.cfg.camera.fx
+
+    def camera_center(self) -> np.ndarray:
+        """The live camera centre in the active map's world (a host read)."""
+        R = self.R_cw.cpu().numpy()
+        t = self.t_cw.cpu().numpy()
+        return -R.T @ t
+
+    # ------------------------------------------------------------------
+    # Localization-only mode (System::ActivateLocalizationMode /
+    # Tracking::InformOnlyTracking): tracking goes on against the frozen
+    # map; no keyframes are inserted and no mapping or loop work runs.
+    # ------------------------------------------------------------------
+    def activate_localization_mode(self) -> None:
+        self.flush_decisions()
+        self.localization_only = True
+
+    def deactivate_localization_mode(self) -> None:
+        self.localization_only = False
 
     def _check_timestamp_jump(self, t: float) -> None:
         """Sensor-dropout guard (``Tracking.cc:1737-1773``): a timestamp
@@ -417,6 +441,10 @@ class SlamSystem:
             return
         self.n_lost_frames = 0
         self.state = TrackingState.OK
+        if self.localization_only:
+            # the last tracked frame and its pose: the temporal-VO fallback
+            # lifts points through it (Tracking.cc:2750)
+            self._loc_prev = (frame, (tr.R_cw, tr.t_cw))
         gap = dispatch_idx - self._last_kf_dispatch_idx if dispatch_idx is not None else None
         if self._need_new_keyframe(frame, n_inliers, gap):
             # the keyframe is inserted with ITS OWN tracked pose; the live
@@ -435,9 +463,47 @@ class SlamSystem:
     # Lost path and Atlas elasticity (Tracking::CreateMapInAtlas /
     # ResetActiveMap)
     # ------------------------------------------------------------------
+    def _loc_vo_fallback(self, frame) -> bool:
+        """Localization-mode temporal VO (``Tracking.cc:2750``
+        ``UpdateLastFrame``): match the frame to the last tracked frame,
+        lift the matches through its stereo depth at its optimized pose, and
+        run motion-only pose optimization on those points. Nothing enters
+        the map. Returns True when the frame was recovered; two host reads
+        (whether the last frame has depth, the inlier count)."""
+        if self._loc_prev is None or not self.localization_only:
+            return False
+        prev, (R_p, t_p) = self._loc_prev
+        depth_ok = prev.depth > 0
+        if not bool(depth_ok.any()):
+            return False
+        res = matching.match_nn_ratio(frame.desc, prev.desc, frame.valid, prev.valid & depth_ok,
+                                      max_dist=60, ratio=0.85)
+        feat_b = torch.clamp(res.idx, min=0).to(torch.int64)
+        z = prev.depth[feat_b]
+        rays = cam_mod.unproject(self.cam_params, prev.xy[feat_b], self.cam_model)
+        Xw = (rays * z[:, None] - t_p) @ R_p  # R_pᵀ(Xc − t_p)
+        valid = res.valid & (z > 0.05)
+        # op by op, as the reference dispatches it eagerly: a true division
+        inv_s2 = 1.0 / (self.cfg.orb.scale_factor ** (2.0 * frame.level.to(torch.float32)))
+        opt = ba.pose_optimization(R_p, t_p, Xw, frame.xy, frame.u_right, inv_s2, valid,
+                                   self.cam_params, self.cfg.camera.bf, cam_model=self.cam_model)
+        if int(opt.n_inliers) < max(20, self.cfg.tracking.min_inliers_local_map):
+            return False
+        self.R_cw, self.t_cw = opt.R_cw, opt.t_cw
+        Ri, ti = lie.se3_inverse(R_p, t_p)
+        self.vel_R, self.vel_t = lie.se3_compose(opt.R_cw, opt.t_cw, Ri, ti)
+        self.has_velocity = True
+        self._loc_prev = (frame, (opt.R_cw, opt.t_cw))
+        return True
+
     def _handle_lost(self, frame) -> None:
-        """Relocalize, else degrade; on hard loss either reset a young map
-        or shelve a mature one and start fresh (``Tracking.cc:1930-1948``)."""
+        """Localization-mode VO, else relocalize, else degrade; on hard loss
+        either reset a young map or shelve a mature one and start fresh
+        (``Tracking.cc:1930-1948``)."""
+        if self._loc_vo_fallback(frame):
+            self.n_lost_frames = 0
+            self.state = TrackingState.OK
+            return
         if self._relocalize(frame):
             self.n_lost_frames = 0
             self.state = TrackingState.OK
@@ -459,13 +525,17 @@ class SlamSystem:
 
     def _create_map_in_atlas(self) -> None:
         """Shelve the active map and start a fresh one. The shelf keeps the
-        map's BoW database (relocalization searches it); the reference's
-        merge prior belongs to the Atlas merge, which is not ported."""
+        map's BoW database (relocalization and merge detection search it)
+        and the merge prior: the next map's world frame is about this
+        camera frame at the loss, so a later merge transform should stay
+        near T_cw_loss⁻¹ up to the drift since the split
+        (``map_merging._merge_gate_allows``). One host read (the pose)."""
         # complete pending BoW inserts so the shelved database covers every
         # keyframe; refinement slices are dropped with the queue on reset
         for kind, fn in list(self._bg_queue):
             if kind == "bow_insert":
                 fn()
+        pose = torch.cat([self.R_cw.reshape(-1), self.t_cw]).cpu().numpy()
         self.atlas_maps.append({
             "ms": self.ms,
             "n_kf": self.n_kf,
@@ -474,6 +544,10 @@ class SlamSystem:
             "gen": self._map_gen,
             "kf_times": list(self._host_kf_times()),
             "kf_lowq": list(self._kf_lowq_host),
+            # (R_cw, t_cw at the loss, its time, seconds spent coasting
+            # blind before it), numpy float32 as the reference keeps them
+            "merge_prior": (pose[:9].reshape(3, 3), pose[9:], float(self._last_track_time or 0.0),
+                            float(self.n_lost_frames / max(self.cfg.camera.fps, 1.0))),
         })
         self._reset_active_map()
 
@@ -759,6 +833,8 @@ class SlamSystem:
         tc = self.cfg.tracking
         if gap is None:
             gap = self.frames_since_kf
+        if self.localization_only:
+            return False
         if self.n_kf >= self.ms.K - 1:
             return False
         if gap < max(tc.min_frames_between_kf, 1):
@@ -930,7 +1006,7 @@ class SlamSystem:
         corrected (SE(3) essential graph), followed by duplicate fusion of
         the recent landmarks, the re-basing of the live pose and four GBA
         slices."""
-        if not self.enable_loop_closing:
+        if not self.enable_loop_closing or self.localization_only:
             return
         if flush:
             kf_idx, cand = self.loop_closer.poll_detect()
@@ -1016,12 +1092,25 @@ class SlamSystem:
                 self._bg_push("cull_kf", self._cull_redundant_slice)
             self._bg_push("loop", self._maybe_close_loop)
             if self.atlas_maps and self.enable_loop_closing:
-                # the reference probes every new keyframe against the
-                # shelved maps here (map_merging.try_merge)
-                raise NotImplementedError("Atlas merge is not ported")
+                # Atlas merge: while shelved maps exist, every new keyframe
+                # is probed for overlap with them (LoopClosing.cc:1288)
+                self._bg_drop(("try_merge",))
+                self._bg_push("try_merge", functools.partial(map_merging.try_merge, self))
             # the live tracking pose is deliberately NOT overwritten by the
             # BA result: the tracker re-aligns at the next frame
             self._bg_backpressure()
+
+    # ------------------------------------------------------------------
+    def save_map(self, path: str) -> None:
+        """Snapshot the map and the tracking state (``slam/checkpoint.py``):
+        the reference's ``.npz`` layout, which either package loads."""
+        self.flush_decisions()
+        checkpoint.save_map(self, path)
+
+    def load_map(self, path: str) -> None:
+        """Restore a snapshot made by either package's ``save_map`` (same
+        configuration)."""
+        checkpoint.load_map(self, path)
 
     # ------------------------------------------------------------------
     def _record_frame(self, t: float) -> None:

@@ -138,6 +138,29 @@ def test_normal_blocks_match_reference():
         np.testing.assert_allclose(bt.numpy(), bj, rtol=1e-5, atol=1e-5 * np.abs(bj).max())
 
 
+def test_normal_blocks_segmented_scan_match_reference():
+    # the card's form of the sums (segmented scans over the sorted rows,
+    # run here on the CPU) against the reference, at the same tolerance
+    w = make_window(6)
+    K, L = w["R"].shape[0], w["X"].shape[0]
+    jo, to = jax_obs(w), torch_obs(w)
+    rj, mj, _ = jf.reproj_residuals(jnp.asarray(w["R"]), jnp.asarray(w["t"]), jnp.asarray(w["X"]), jo,
+                                    jnp.asarray(CAM), BF)
+    _, wj, _ = jba._eval_weights(rj, jo, True)
+    blocks_j = jba._build_normal_blocks(jnp.asarray(w["R"]), jnp.asarray(w["t"]), jnp.asarray(w["X"]),
+                                        jo, jnp.asarray(CAM), BF, jo.inv_sigma2 * wj * jo.valid, mj)
+    T = torch.from_numpy
+    rt, mt, _ = tf.reproj_residuals(T(w["R"]), T(w["t"]), T(w["X"]), to, T(CAM), BF)
+    _, wt, _ = tba._eval_weights(rt, to, True)
+    segs = (tba._segments(to.kf, K), tba._segments(to.lm, L), tba._segments(to.kf * L + to.lm, K * L))
+    assert tba._normal_segments(to, K, L) is None  # the CPU path keeps index_add_
+    blocks_t = tba._build_normal_blocks(T(w["R"]), T(w["t"]), T(w["X"]), to, T(CAM), BF,
+                                        to.inv_sigma2 * wt * to.valid, mt, segs=segs)
+    for bj, bt in zip(blocks_j, blocks_t):
+        bj = np.asarray(bj)
+        np.testing.assert_allclose(bt.numpy(), bj, rtol=1e-5, atol=1e-5 * np.abs(bj).max())
+
+
 @pytest.mark.parametrize("use_huber", [True, False])
 def test_eval_weights_match_reference(use_huber):
     w = make_window(4)

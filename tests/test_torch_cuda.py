@@ -13,8 +13,11 @@ cases are ``chip_smoke.py``'s, which checks the same ones on every run.
 The loop tests are chip_smoke.py phase 5 at 8 frames (poses within its
 TRANS_TOL and ROT_TOL), a local-BA slice under the sync debug mode, the
 small injected loop closure (``chip_smoke.SMALL_CLOSURE``) on the card
-against the CPU, and a global-BA slice under the sync debug mode in
-"error".
+against the CPU, a global-BA slice under the sync debug mode in
+"error", and the Atlas merge pass of chip_smoke.py phase 7 at the small
+configuration, card against CPU (the same merge, keyframes and counters,
+poses within TRANS_TOL / ROT_TOL), with a local-BA slice that gives the
+same bits twice on the card.
 """
 
 import pytest
@@ -179,3 +182,53 @@ def test_gba_chunk_reads_the_host_once(dev):
         torch.cuda.set_sync_debug_mode("default")
     assert float(cost) > 0.0
     assert not torch.equal(ms.kf_t_cw, before)  # the slice moved the map
+
+
+def test_small_merge_pass_card_matches_cpu(dev):
+    # chip_smoke.py phase 7's scenario at the small configuration: the map
+    # is shelved by the blackout and merged back at the same pair on the
+    # card and on the CPU, with the same keyframes and counters
+    from orb_slam3_detailed_comments_kor_tpu_torch.slam import map_merging
+    from orb_slam3_detailed_comments_kor_tpu_torch.slam.system import SlamSystem
+
+    cpu = torch.device("cpu")
+    cfg = chip_smoke.merge_config(small=True)
+    _, frames = chip_smoke.render_loop_sequence(cfg, chip_smoke.MERGE_FIRST, cpu, "strafe", chip_smoke.MERGE_SPEED)
+    black = torch.zeros((cfg.camera.height, cfg.camera.width))
+    runs = []
+    for d in (dev, cpu):
+        merges = []
+
+        def weld(fn):
+            def wrapper(slam_, *a):
+                done = fn(slam_, *a)
+                merges.append((a[1], a[2], done))
+                return done
+            return wrapper
+
+        slam = SlamSystem(cfg, device=d)
+        with chip_smoke.patched([(map_merging, "merge_into_shelved", weld)]):
+            chip_smoke.run_merge_steps(slam, chip_smoke.merge_schedule([(a.to(d), b.to(d)) for a, b in frames],
+                                                                       black.to(d)))
+        runs.append((slam, merges))
+    (card, m_card), (host, m_host) = runs
+    assert m_card == m_host and len(m_host) == 1 and m_host[0][2]
+    assert card.n_kf == host.n_kf and card.stats == host.stats and not card.atlas_maps
+    d_c, d_r = chip_smoke.trajectory_diff(card.trajectory_arrays(), host.trajectory_arrays())
+    assert d_c.max() <= chip_smoke.TRANS_TOL and d_r.max() <= chip_smoke.ROT_TOL
+
+
+def test_local_ba_slice_is_deterministic(dev):
+    # two runs of one local-BA slice on the same inputs give the same bits
+    # (the normal equations are summed by segmented scans on the card)
+    from orb_slam3_detailed_comments_kor_tpu_torch.slam import tracking
+
+    cfg = chip_smoke.loop_config(small=True)
+    _, frames = chip_smoke.render_loop_sequence(cfg, 8, dev)
+    slam, _ = chip_smoke.run_loop(cfg, frames, dev)
+    slam.flush_decisions()
+    kf = slam.n_kf - 1
+    spread = chip_smoke.local_ba_spread(
+        lambda: tracking.local_ba_step(slam.ms, kf, slam.cam_params, cfg.camera.bf, window=8,
+                                       lm_cap=cfg.capacity.max_local_landmarks, iters=2), slam.ms)
+    assert all(v == 0 for v in spread.values()), spread

@@ -28,9 +28,28 @@ correction inlier counts exactly, poses within 1e-5 (rotation entries)
 and 1e-5 m, corrected landmarks within 1e-4 m; the GBA slice within 1e-4
 m / 1e-4 rad and chi2 rtol 1e-3; relocalization of a frame 1 m from the
 system's last pose within 1e-4 m and 1e-4 rad.
+
+Then the Atlas merge: the port loads the reference's checkpoint (the
+global-BA slices leave the two maps millimetres apart, F15), a 4 s
+timestamp gap shelves the map in both packages, and frames from the start
+are replayed until the reference merges. Tolerances: the random key at
+the hand-over, the merge frame and pair, the keyframe remap, the
+keyframe count, the counters, ``obs_lm``, ``lm_valid`` and ``kf_valid``
+exactly; keyframe poses and the replayed frames' poses within 2e-3 m and
+1e-3 rad; the shelving prior within 1e-5. On the reference's captured
+inputs: ``merge_into_shelved``'s integer fields and BoW rows exactly, its
+poses within 1e-4 and landmarks within 1e-3 m; ``_concat_maps`` (also
+with a culled keyframe and with a landmark overflow) integer and bool
+fields exactly, floats within 1e-5; ``detect_merge_candidate`` (also
+with a tied row and above its threshold) the candidate exactly, the score
+within 1e-6; the merge gate's verdict on the reference's six cases.
 """
 
 import concurrent.futures
+import copy
+import os
+import tempfile
+import threading
 
 import jax.numpy as jnp
 import numpy as np
@@ -45,16 +64,22 @@ from orb_slam3_detailed_comments_kor_tpu.eval import ate  # noqa: E402
 from orb_slam3_detailed_comments_kor_tpu.io import synthetic as jsyn  # noqa: E402
 from orb_slam3_detailed_comments_kor_tpu.slam import frontend as jfe  # noqa: E402
 from orb_slam3_detailed_comments_kor_tpu.slam import loop_closing as jlc  # noqa: E402
+from orb_slam3_detailed_comments_kor_tpu.slam import map_merging as jmm  # noqa: E402
 from orb_slam3_detailed_comments_kor_tpu.slam import map_state as jms  # noqa: E402
 from orb_slam3_detailed_comments_kor_tpu.slam.system import SlamSystem as JaxSlam  # noqa: E402
 from orb_slam3_detailed_comments_kor_tpu.utils import lie as jlie  # noqa: E402
 from orb_slam3_detailed_comments_kor_tpu_torch.slam import frontend as tfe  # noqa: E402
 from orb_slam3_detailed_comments_kor_tpu_torch.slam import loop_closing as tlc  # noqa: E402
+from orb_slam3_detailed_comments_kor_tpu_torch.slam import map_merging as tmm  # noqa: E402
 from orb_slam3_detailed_comments_kor_tpu_torch.slam import map_state as tms  # noqa: E402
 from orb_slam3_detailed_comments_kor_tpu_torch.slam.system import SlamSystem as TorchSlam  # noqa: E402
 
 SC = chip_smoke.SMALL_CLOSURE
 CORES = ("_detect_core", "_verify_core_reproj", "_refine_hyp_core", "_correct_core")
+MERGE_CORES = ("detect_merge_candidate", "_concat_maps")
+# after the run: a timestamp gap of GAP_S shelves the map, then frames
+# REPLAY[0].. are replayed until the system has merged (at most REPLAY[1])
+GAP_S, REPLAY = 4.0, (0, 40)
 
 
 def npy(x):
@@ -93,9 +118,12 @@ def jax_inject(slam, mag=0.35, yaw=0.03):
     slam.has_velocity = False
 
 
-def run(system, imgs, inject):
+def run(system, imgs, inject, handoff):
     """Feed the pairs, injecting the drift at the turn; record the frames
-    that insert a keyframe and the frames whose slice corrected the map."""
+    that insert a keyframe and the frames whose slice corrected the map.
+    Then flush, hand the reference's state over through a checkpoint
+    (``handoff``: ("save" or "load", path, event)), and run the merge
+    phase: a timestamp gap and replayed frames until the map merged."""
     kf_at, corrected, at_closure = [], [], None
     for i, (il, ir) in enumerate(imgs):
         if i == SC["inject_at"]:
@@ -109,10 +137,40 @@ def run(system, imgs, inject):
             corrected.append(i)
             at_closure = system.trajectory_arrays()  # before the global-BA slices
     lc = system.loop_closer
-    return dict(system=system, kf_at=kf_at, corrected=corrected, traj=system.trajectory_arrays(),
-                traj_at_closure=at_closure,
-                closure=tuple(getattr(lc, "last_closure", ())), loops=lc.n_loops_closed,
-                stats=dict(system.stats), state=system.state)
+    out = dict(system=system, kf_at=kf_at, corrected=corrected, traj=system.trajectory_arrays(),
+               traj_at_closure=at_closure,
+               closure=tuple(getattr(lc, "last_closure", ())), loops=lc.n_loops_closed,
+               stats=dict(system.stats), state=system.state,
+               end=dict(ms=system.ms, lc=copy.copy(lc), n_kf=system.n_kf, R_cw=system.R_cw, t_cw=system.t_cw))
+    # the global-BA slices after the correction leave the two maps ~mm
+    # apart (F15): the port continues from the reference's state, loaded
+    # from the reference's checkpoint, so that the merge phase starts from
+    # the same map
+    mode, path, ready = handoff
+    system.flush_decisions()
+    out["key_at_handoff"] = np.asarray(system._loop_key).astype(np.int64)
+    if mode == "save":
+        system.save_map(path)
+        ready.set()
+    else:
+        assert ready.wait(600)
+        system.load_map(path)
+    # the Atlas merge: the gap shelves the map (>= 5 keyframes) and a fresh
+    # map starts; the replayed frames revisit the shelved map until the
+    # merge welds the fresh map back into it
+    t0 = (len(imgs) - 1) / chip_smoke.FPS + GAP_S
+    out["merged_at"] = None
+    for r, i in enumerate(range(*REPLAY)):
+        system.track_stereo(*imgs[i], t0 + r / chip_smoke.FPS)
+        if r == 0:
+            out["shelved"] = dict(maps=1 + len(system.atlas_maps), n_kf=system.atlas_maps[0]["n_kf"],
+                                  prior=system.atlas_maps[0]["merge_prior"])
+        elif not system.atlas_maps:
+            out.update(merged_at=r, traj_at_merge=system.trajectory_arrays(), n_kf_merged=system.n_kf,
+                       stats_merged=dict(system.stats), state_merged=system.state,
+                       ms_merged=system.ms)
+            break
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -135,8 +193,9 @@ def loops():
     for s in (jax_system, torch_system):
         s.loop_closer.min_gap = SC["min_gap"]
     # the reference's loop programs, inputs and outputs as numpy
-    captured = {name: [] for name in CORES}
+    captured = {name: [] for name in CORES + MERGE_CORES + ("merge_into_shelved", "port_merges")}
     saved = {name: getattr(jlc, name) for name in CORES}
+    saved_merge = {name: getattr(jmm, name) for name in MERGE_CORES + ("merge_into_shelved",)}
 
     def capture(name):
         def wrapper(*a, **k):
@@ -147,6 +206,28 @@ def loops():
             return out
         return wrapper
 
+    def capture_merge(name):
+        def wrapper(*a, **k):
+            out = saved_merge[name](*a, **k)
+            outs = out if isinstance(out, tuple) else (out,)
+            captured[name].append(([npy(x) for x in a], {kk: npy(v) for kk, v in k.items()},
+                                   [npy(o) for o in outs]))
+            return out
+        return wrapper
+
+    def capture_weld(slam, shelf_idx, kf_cur, kf_old, R_d, t_d):
+        # the system and the shelf before the weld, and the system after it
+        shelf = slam.atlas_maps[shelf_idx]
+        before = dict(ms=npy(slam.ms), n_kf=slam.n_kf, R_cw=npy(slam.R_cw), t_cw=npy(slam.t_cw),
+                      gen=slam._map_gen, words=npy(slam.loop_closer.db_words), wts=npy(slam.loop_closer.db_wts),
+                      shelf=dict(ms=npy(shelf["ms"]), n_kf=shelf["n_kf"], gen=shelf["gen"],
+                                 words=npy(shelf["loop_closer"].db_words), wts=npy(shelf["loop_closer"].db_wts)))
+        ok = saved_merge["merge_into_shelved"](slam, shelf_idx, kf_cur, kf_old, R_d, t_d)
+        after = dict(ok=ok, ms=npy(slam.ms), n_kf=slam.n_kf, R_cw=npy(slam.R_cw), t_cw=npy(slam.t_cw),
+                     words=npy(slam.loop_closer.db_words), wts=npy(slam.loop_closer.db_wts))
+        captured["merge_into_shelved"].append((before, (kf_cur, kf_old, npy(R_d), npy(t_d)), after))
+        return ok
+
     def port_frontend(img_l, img_r, bf, **kw):
         return frames[img_l.data_ptr()]
 
@@ -155,24 +236,52 @@ def loops():
         # virtual devices, which would route it to parallel/dist_ba)
         return saved_gba(ms, cam_params, jnp.float32(bf), iters=iters, cam_model=cam_model, rig=rig)
 
+    def port_weld(slam, shelf_idx, kf_cur, kf_old, R_d, t_d):
+        concat = tmm._concat_maps
+
+        def spy(*a):
+            out = concat(*a)
+            captured["port_merges"].append(dict(pair=(kf_cur, kf_old), kf_dst=out[1].numpy().copy()))
+            return out
+        tmm._concat_maps = spy
+        try:
+            return saved_port_weld(slam, shelf_idx, kf_cur, kf_old, R_d, t_d)
+        finally:
+            tmm._concat_maps = concat
+
     saved_fe, saved_gba, saved_global = tfe.process_stereo, jlc._global_ba_core, jlc.global_ba
+    saved_port_weld = tmm.merge_into_shelved
     for name in CORES:
         setattr(jlc, name, capture(name))
+    for name in MERGE_CORES:
+        setattr(jmm, name, capture_merge(name))
+    jmm.merge_into_shelved = capture_weld
+    tmm.merge_into_shelved = port_weld
     tfe.process_stereo = port_frontend
     jlc.global_ba = single_device_gba
     torch.set_num_threads(4)
+    tmp = tempfile.mkdtemp()
+    path, ready = os.path.join(tmp, "reference.npz"), threading.Event()
     try:
-        # the two runs are independent: overlap them (each is deterministic)
+        # the two runs are independent up to the hand-over: overlap them
+        # (each is deterministic)
         with concurrent.futures.ThreadPoolExecutor(2) as pool:
-            j = pool.submit(run, jax_system, [(np.array(a), np.array(b)) for a, b in imgs], jax_inject)
-            t = pool.submit(run, torch_system, imgs, chip_smoke.inject_drift)
+            j = pool.submit(run, jax_system, [(np.array(a), np.array(b)) for a, b in imgs], jax_inject,
+                            ("save", path, ready))
+            t = pool.submit(run, torch_system, imgs, chip_smoke.inject_drift, ("load", path, ready))
             return j.result(), t.result(), ts, cfg, captured, frames, imgs
     finally:
         for name in CORES:
             setattr(jlc, name, saved[name])
+        for name, fn in saved_merge.items():
+            setattr(jmm, name, fn)
+        tmm.merge_into_shelved = saved_port_weld
         tfe.process_stereo = saved_fe
         jlc.global_ba = saved_global
         torch.set_num_threads(1)
+        if os.path.exists(path):
+            os.remove(path)
+        os.rmdir(tmp)
 
 
 def test_same_closure_keyframes_and_stats(loops):
@@ -271,7 +380,7 @@ def test_correct_core_with_tied_covisibility(loops):
 
 
 def test_gba_chunk(loops):
-    ms = loops[0]["system"].ms
+    ms = loops[0]["end"]["ms"]
     cfg = loops[3]
     cam = np.array([cfg.camera.fx, cfg.camera.fy, cfg.camera.cx, cfg.camera.cy], np.float32)
     ref_ms, ref_cost = jlc._global_ba_core(ms, jnp.asarray(cam), jnp.float32(cfg.camera.bf), iters=2)
@@ -283,21 +392,218 @@ def test_gba_chunk(loops):
 
 
 def test_relocalize_in_far_from_last_pose(loops):
-    j = loops[0]["system"]
+    j, end = loops[0]["system"], loops[0]["end"]
     cfg, frames, imgs = loops[3], loops[5], loops[6]
     frame = frames[imgs[20][0].data_ptr()]  # 1.0 m out; the system ended 0.0-0.2 m from the start
     jframe = jfe.Frame(**{k: (None if v is None else jnp.asarray(v)) for k, v in tfe.frame_to_numpy(frame).items()})
     key = np.asarray(j._loop_key)
-    ref = j._relocalize_in(jframe, j.ms, j.loop_closer, j.n_kf)
+    ref = j._relocalize_in(jframe, end["ms"], end["lc"], end["n_kf"])
     port = TorchSlam(cfg, device="cpu")
     port._loop_key = T(key.astype(np.int64))
     lc = port.loop_closer
-    lc.db_words, lc.db_wts = T(j.loop_closer.db_words), T(j.loop_closer.db_wts)
-    got = port._relocalize_in(frame, tmap(npy(j.ms)), lc, j.n_kf)
+    lc.db_words, lc.db_wts = T(end["lc"].db_words), T(end["lc"].db_wts)
+    got = port._relocalize_in(frame, tmap(npy(end["ms"])), lc, end["n_kf"])
     assert ref is not None and got is not None
     assert_close(np.asarray(ref[1]), got[1], 1e-4)
     assert chip_smoke.rotation_angle(torch.from_numpy(np.asarray(ref[0])), got[0]) <= 1e-4
     # and it is far: the recovered centre is 1 m out, the last pose is not
     centre = -(got[0].T @ got[1]).numpy()
-    last = -(np.asarray(j.R_cw).T @ np.asarray(j.t_cw))
+    last = -(np.asarray(end["R_cw"]).T @ np.asarray(end["t_cw"]))
     assert np.linalg.norm(centre - last) > 0.5
+
+
+def test_merge_same_pair_keyframes_and_poses(loops):
+    """From the same state (the reference's checkpoint, loaded by the
+    port; the random key was already equal), the timestamp gap shelves the
+    map in both packages and the replay merges it back at the same frame,
+    with the same pair and remap, the same keyframes and counters, the same
+    observations and landmark slots, and keyframe poses and the replayed
+    frames' poses within 2e-3 m / 1e-3 rad."""
+    j, t, captured = loops[0], loops[1], loops[4]
+    np.testing.assert_array_equal(t["key_at_handoff"], j["key_at_handoff"])
+    assert j["shelved"]["maps"] == t["shelved"]["maps"] == 2
+    assert j["shelved"]["n_kf"] == t["shelved"]["n_kf"] >= 5
+    (before, (kf_cur, kf_old, _, _), after), = captured["merge_into_shelved"]  # the reference merged once
+    assert after["ok"] and j["merged_at"] is not None
+    assert after["n_kf"] == before["n_kf"] + before["shelf"]["n_kf"]
+    assert t["merged_at"] == j["merged_at"], (t["merged_at"], j["merged_at"])
+    (port,) = captured["port_merges"]
+    assert port["pair"] == (kf_cur, kf_old)
+    (args, _, outs), = captured["_concat_maps"]
+    np.testing.assert_array_equal(port["kf_dst"], outs[1])
+    assert t["n_kf_merged"] == j["n_kf_merged"]
+    assert t["stats_merged"] == j["stats_merged"] and t["state_merged"] == j["state_merged"] == 1
+    for f in ("obs_lm", "lm_valid", "kf_valid"):
+        np.testing.assert_array_equal(getattr(t["ms_merged"], f).numpy(), np.asarray(getattr(j["ms_merged"], f)))
+    n = t["n_kf_merged"]
+    kf = [tuple(getattr(r["ms_merged"], f)[:n] for f in ("kf_R_cw", "kf_t_cw")) for r in (j, t)]
+    kf_c = [-np.einsum("kji,kj->ki", np.asarray(R), np.asarray(x)) for R, x in kf]
+    assert np.linalg.norm(kf_c[0] - kf_c[1], axis=1).max() <= 2e-3
+    assert max(chip_smoke.rotation_angle(torch.from_numpy(np.asarray(kf[0][0][k])), kf[1][0][k])
+               for k in range(n)) <= 1e-3
+    replayed = slice(len(loops[6]), None)  # the frames after the gap
+    d_centre, d_rot = chip_smoke.trajectory_diff(*(tuple(a[replayed] for a in r["traj_at_merge"]) for r in (j, t)))
+    assert len(d_centre) == j["merged_at"] + 1
+    assert d_centre.max() <= 2e-3, np.round(d_centre * 1e3, 3).tolist()
+    assert d_rot.max() <= 1e-3, d_rot.tolist()
+
+
+def test_merge_into_shelved_on_reference_state(loops):
+    """The port's weld on the reference's system and shelf just before its
+    merge: remapped observations, landmark slots and BoW rows exactly;
+    keyframe poses within 1e-4 (rotation entries) and 1e-4 m, landmarks
+    within 1e-3 m, the live pose within 1e-4."""
+    (before, (kf_cur, kf_old, R_d, t_d), after), = loops[4]["merge_into_shelved"]
+    p = TorchSlam(loops[3], device="cpu")
+    p.ms, p.n_kf, p._map_gen = tmap(before["ms"]), before["n_kf"], before["gen"]
+    p.R_cw, p.t_cw = T(before["R_cw"]), T(before["t_cw"])
+    p.loop_closer.db_words, p.loop_closer.db_wts = T(before["words"]), T(before["wts"])
+    sh = before["shelf"]
+    lc_old = p._new_loop_closer()
+    lc_old.db_words, lc_old.db_wts = T(sh["words"]), T(sh["wts"])
+    p.atlas_maps = [dict(ms=tmap(sh["ms"]), n_kf=sh["n_kf"], gen=sh["gen"], loop_closer=lc_old)]
+    assert tmm.merge_into_shelved(p, 0, int(kf_cur), int(kf_old), T(R_d), T(t_d))
+    ref = after["ms"]
+    assert p.n_kf == after["n_kf"] and not p.atlas_maps and p.loop_closer is lc_old
+    for f in ("obs_lm", "lm_valid", "kf_valid", "kf_desc", "lm_desc", "lm_first_kf", "lm_found", "lm_visible"):
+        np.testing.assert_array_equal(getattr(p.ms, f).numpy(), ref[f].view(np.int32) if f.endswith("desc")
+                                      else ref[f], err_msg=f)
+    np.testing.assert_array_equal(p.loop_closer.db_words.numpy(), after["words"])
+    np.testing.assert_array_equal(p.loop_closer.db_wts.numpy(), after["wts"])
+    assert_close(ref["kf_R_cw"], p.ms.kf_R_cw, 1e-4)
+    assert_close(ref["kf_t_cw"], p.ms.kf_t_cw, 1e-4)
+    valid = ref["lm_valid"]
+    np.testing.assert_allclose(p.ms.lm_pos.numpy()[valid], ref["lm_pos"][valid], rtol=0, atol=1e-3)
+    assert_close(after["R_cw"], p.R_cw, 1e-4)
+    assert_close(after["t_cw"], p.t_cw, 1e-4)
+
+
+def concat_case(args, case):
+    """The reference's captured ``_concat_maps`` inputs, or a variant: a
+    culled keyframe in the middle of the active map (rank remap, parked
+    slot), or a shelved map with too few free landmark slots (overflow)."""
+    ms_old, ms_cur, n_old, R_d, t_d = (copy.deepcopy(a) for a in args)
+    if case == "culled keyframe":
+        ms_cur["kf_valid"][1] = False
+    elif case == "landmark overflow":
+        ms_old["lm_valid"][:] = True
+        ms_old["lm_valid"][::512] = False
+    return ms_old, ms_cur, n_old, R_d, t_d
+
+
+@pytest.mark.parametrize("case", ["as captured", "culled keyframe", "landmark overflow"])
+def test_concat_maps(loops, case):
+    """``_concat_maps`` against the reference's: every integer and boolean
+    field, the remap, the keyframe count and the overflow exactly; float
+    fields within 1e-5."""
+    (args, _, _), = loops[4]["_concat_maps"]
+    ms_old, ms_cur, n_old, R_d, t_d = concat_case(args, case)
+    jm = lambda d: jms.MapState(**{f: jnp.asarray(v) for f, v in d.items()})
+    ref_ms, ref_dst, ref_n, ref_over = (npy(o) for o in jmm._concat_maps(
+        jm(ms_old), jm(ms_cur), jnp.int32(n_old), jnp.asarray(R_d), jnp.asarray(t_d)))
+    got_ms, got_dst, got_n, got_over = tmm._concat_maps(tmap(ms_old), tmap(ms_cur), int(n_old), T(R_d), T(t_d))
+    np.testing.assert_array_equal(got_dst.numpy(), ref_dst)
+    assert int(got_n) == int(ref_n) and int(got_over) == int(ref_over)
+    assert (int(ref_over) > 0) == (case == "landmark overflow")
+    got = tms.map_state_to_numpy(got_ms)
+    for f, r in ref_ms.items():
+        if r.dtype.kind == "f":
+            np.testing.assert_allclose(got[f], r, rtol=0, atol=1e-5, err_msg=f)
+        else:
+            np.testing.assert_array_equal(got[f], r, err_msg=f)
+
+
+def test_detect_merge_candidate(loops):
+    """The merge search on the reference's captured BoW rows: the same
+    candidate, its score within 1e-6; with the best row copied into a later
+    slot the lower slot wins in both; below the threshold both give -1."""
+    captured = loops[4]["detect_merge_candidate"]
+    assert captured
+    for args, kw, outs in captured:
+        (q_ids, q_wts), (db_ids, db_wts), n = ((np.asarray(a) for a in x) if isinstance(x, tuple) else x
+                                                for x in args)
+        n = int(n)
+        best = int(outs[0])
+        words, wts = db_ids.copy(), db_wts.copy()
+        if best >= 0 and n < words.shape[0]:
+            words[n], wts[n] = words[best], wts[best]
+        for d_ids, d_wts, n_, min_score in ((db_ids, db_wts, n, 0.20), (words, wts, n + 1, 0.20),
+                                            (db_ids, db_wts, n, 1.5)):
+            ref = saved_merge_candidate((q_ids, q_wts), (d_ids, d_wts), n_, min_score)
+            got = tmm.detect_merge_candidate((T(q_ids), T(q_wts)), (T(d_ids), T(d_wts)), n_, min_score)
+            assert got[0] == ref[0] and abs(got[1] - ref[1]) <= 1e-6, (got, ref)
+        assert ref[0] == -1
+
+
+def saved_merge_candidate(bow, db, n, min_score):
+    return jmm.detect_merge_candidate(tuple(jnp.asarray(a) for a in bow), tuple(jnp.asarray(a) for a in db), n,
+                                      min_score=min_score)
+
+
+GATE_SYSTEMS = {}
+
+
+def gate_systems(cfg, n_kf, step):
+    """Both packages' systems with ``n_kf`` keyframes on a line along x,
+    ``step`` m apart, identity rotations, the live camera at the last
+    keyframe (the reference's ``tests/test_merge_gate.py`` setup)."""
+    if (n_kf, step) not in GATE_SYSTEMS:
+        j = JaxSlam(to_jax_config(cfg))
+        t = TorchSlam(cfg, device="cpu")
+        c = np.zeros((j.ms.K, 3), np.float32)
+        c[:n_kf, 0] = np.arange(n_kf) * step
+        valid = np.arange(j.ms.K) < n_kf
+        j.ms = j.ms._replace(kf_R_cw=jnp.broadcast_to(jnp.eye(3), j.ms.kf_R_cw.shape), kf_t_cw=jnp.asarray(-c),
+                             kf_valid=jnp.asarray(valid))
+        t.ms = t.ms._replace(kf_t_cw=T(-c), kf_valid=T(valid))
+        for s_ in (j, t):
+            s_.n_kf = n_kf
+        j.R_cw, j.t_cw = jnp.eye(3), jnp.asarray(-c[n_kf - 1])
+        t.R_cw, t.t_cw = torch.eye(3), T(-c[n_kf - 1])
+        GATE_SYSTEMS[(n_kf, step)] = (j, t)
+    return GATE_SYSTEMS[(n_kf, step)]
+
+
+def gate_case(case, cfg):
+    """(systems, prior, R_d, t_d, the expected verdict) for one of the
+    reference's gate tests."""
+    prior = (np.eye(3), -np.array([5.0, 0.0, 0.0]), 0.0)
+    eye = np.eye(3, dtype=np.float32)
+    if case == "honest rejoin allowed":
+        return gate_systems(cfg, 6, 0.2), prior, eye, np.array([5.0, 0.2, 0.0], np.float32), True
+    if case == "aliased merge rejected":
+        return gate_systems(cfg, 6, 0.2), prior, eye, np.array([-5.0, 0.0, 0.0], np.float32), False
+    if case == "rotated alias rejected":
+        # ~34 deg, with t_d mapping the current centre exactly to the prior's spot
+        R_d = np.asarray(jlie.so3_exp(jnp.array([0.0, 0.6, 0.0])))
+        c = np.array([1.0, 0.0, 0.0], np.float32)
+        return gate_systems(cfg, 6, 0.2), prior, R_d, (c + np.array([5.0, 0, 0]) - R_d @ c).astype(np.float32), False
+    if case == "missing prior skips gate":
+        return gate_systems(cfg, 6, 0.2), None, eye, np.array([1.0, 0.0, 0.0], np.float32), True
+    if case == "budget scales with arc (short)":
+        return gate_systems(cfg, 3, 0.2), prior, eye, np.array([5.0, 4.5, 0.0], np.float32), False
+    if case == "budget scales with arc (long)":
+        return gate_systems(cfg, 31, 0.4), prior, eye, np.array([5.0, 4.5, 0.0], np.float32), True
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", ["honest rejoin allowed", "aliased merge rejected", "rotated alias rejected",
+                                  "missing prior skips gate", "budget scales with arc (short)",
+                                  "budget scales with arc (long)", "shelving records prior"])
+def test_merge_gate(loops, case):
+    """The merge-plausibility gate on the reference's own cases
+    (``tests/test_merge_gate.py``): both packages give the expected
+    verdict; and the prior that shelving records, in the loop run, has
+    the reference's shapes and times, its pose within 2e-3."""
+    if case == "shelving records prior":
+        pj, pt = loops[0]["shelved"]["prior"], loops[1]["shelved"]["prior"]
+        assert pt[0].shape == (3, 3) and pt[1].shape == (3,) and len(pt) == len(pj) == 4
+        assert pt[0].dtype == pj[0].dtype == np.float32
+        np.testing.assert_allclose(pt[0], pj[0], rtol=0, atol=1e-5)
+        np.testing.assert_allclose(pt[1], pj[1], rtol=0, atol=1e-5)
+        assert pt[2:] == pj[2:]
+        return
+    (j, t), prior, R_d, t_d, want = gate_case(case, loops[3])
+    shelf = {} if prior is None else {"merge_prior": prior}
+    assert bool(jmm._merge_gate_allows(j, shelf, jnp.asarray(R_d), jnp.asarray(t_d))) is want
+    assert tmm._merge_gate_allows(t, shelf, T(R_d), T(t_d)) is want

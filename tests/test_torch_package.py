@@ -33,6 +33,8 @@ SLICE_MODULES = [
     # loop closing and relocalization
     "utils.prng", "utils.host_read", "models.vocabulary", "ops.ransac", "optim.pose_graph",
     "slam.loop_closing",
+    # the Atlas merge, checkpoints and localization mode
+    "slam.checkpoint",
 ]
 
 
@@ -108,6 +110,24 @@ def test_entry_points_default_to_cuda(module, name):
     fn = getattr(importlib.import_module(f"{PKG}.{module}"), name)
     default = inspect.signature(fn).parameters["device"].default
     assert default is not None and torch.device(default).type == "cuda"
+
+
+@pytest.mark.parametrize(
+    "module,name",
+    [("slam.map_merging", "try_merge"), ("slam.map_merging", "merge_into_shelved"),
+     ("slam.map_merging", "verify_merge"), ("slam.map_merging", "_concat_maps"),
+     ("slam.checkpoint", "save_map"), ("slam.checkpoint", "load_map"),
+     ("slam.system", "SlamSystem.save_map"), ("slam.system", "SlamSystem.load_map"),
+     ("slam.system", "SlamSystem.activate_localization_mode"), ("slam.system", "SlamSystem._loc_vo_fallback")],
+)
+def test_entry_points_follow_their_inputs_device(module, name):
+    """Entry points that work on a system's or a map's tensors take no
+    device of their own: what they make lands on the device of what they
+    are given (the system's, the card unless its caller named another)."""
+    obj = importlib.import_module(f"{PKG}.{module}")
+    for part in name.split("."):
+        obj = getattr(obj, part)
+    assert "device" not in inspect.signature(obj).parameters
 
 
 def test_loop_closing_on_by_default():

@@ -12,6 +12,15 @@ per-frame camera centres within 2e-3 m and rotations within 1e-3 rad
 final keyframe poses); |n_inliers difference| <= max(3, 2 %) per
 decision; landmark counts within 2 %; the port's ATE at most the
 reference's plus 2 mm.
+
+After those, both systems' maps go through checkpoints (``save_map`` /
+``load_map``, the reference's ``.npz`` layout): a map that either package
+saves loads in the other with every array, scalar and shelved map exactly
+as written, and each snapshot, loaded by both packages, tracks two more
+frames with poses within 2e-3 m / 1e-3 rad of each other; a capacity
+mismatch raises. Then localization mode: both systems track four more
+frames with no keyframe inserted, poses within 2e-3 m / 1e-3 rad; and the
+localization-mode VO fallback on one frame pair of that run, within 1e-4.
 """
 
 import concurrent.futures
@@ -30,9 +39,16 @@ from orb_slam3_detailed_comments_kor_tpu import config as jcfg  # noqa: E402
 from orb_slam3_detailed_comments_kor_tpu.eval import ate  # noqa: E402
 from orb_slam3_detailed_comments_kor_tpu.io import synthetic as jsyn  # noqa: E402
 from orb_slam3_detailed_comments_kor_tpu.slam.system import SlamSystem as JaxSlam  # noqa: E402
+from orb_slam3_detailed_comments_kor_tpu_torch.slam import frontend as tfe  # noqa: E402
+from orb_slam3_detailed_comments_kor_tpu_torch.slam import map_state as tms  # noqa: E402
 from orb_slam3_detailed_comments_kor_tpu_torch.slam.system import SlamSystem as TorchSlam  # noqa: E402
 
 N_FRAMES = chip_smoke.SMALL_LOOP_FRAMES
+# frames after the fixture's: four in localization mode (the first two
+# also resume each checkpoint)
+N_EXTRA = 4
+# the reference's localization-mode stashes (last tracked frame, pose), in order
+LOC_STASHES = []
 
 
 def to_jax_config(cfg):
@@ -142,3 +158,164 @@ def test_ate(loops):
     ate_j = ate.ate_rmse(j["traj"][1], ts[:N_FRAMES])
     ate_t = ate.ate_rmse(t["traj"][1], ts[:N_FRAMES])
     assert ate_t <= ate_j + 2e-3 and ate_j < 0.05
+
+
+@pytest.fixture(scope="module")
+def extra(loops):
+    """The strafe sequence's next N_EXTRA pairs (numpy) and their frames as
+    the reference extracts them."""
+    cam = loops[3].camera
+    params = jnp.array([cam.fx, cam.fy, cam.cx, cam.cy])
+    scene = jsyn.default_scene()
+    Rs, ts = jsyn.make_trajectory(N_FRAMES + N_EXTRA, motion="strafe", speed=chip_smoke.SPEED)
+    imgs = []
+    for i in range(N_FRAMES, N_FRAMES + N_EXTRA):
+        il, ir, _ = jsyn.stereo_pair(params, jnp.asarray(Rs[i]), jnp.asarray(ts[i]), chip_smoke.BASELINE,
+                                     scene, h=cam.height, w=cam.width)
+        imgs.append((np.array(il), np.array(ir)))
+    return imgs
+
+
+def new_system(package, cfg):
+    system = JaxSlam(to_jax_config(cfg)) if package == "jax" else TorchSlam(cfg, device="cpu")
+    system.enable_loop_closing = False
+    return system
+
+
+def system_arrays(system):
+    """Everything a checkpoint holds, as numpy, from either package."""
+    if isinstance(system, TorchSlam):
+        ms = lambda m: tms.map_state_to_numpy(m)
+    else:
+        ms = lambda m: {k: np.asarray(v) for k, v in m._asdict().items()}
+    out = {f"ms_{k}": v for k, v in ms(system.ms).items()}
+    for name in ("R_cw", "t_cw", "vel_R", "vel_t"):
+        out[name] = np.asarray(getattr(system, name))
+    out["lc_bow_words"] = np.asarray(system.loop_closer.db_words)
+    out["lc_bow_wts"] = np.asarray(system.loop_closer.db_wts)
+    for i, m in enumerate(system.atlas_maps):
+        out.update({f"atlas{i}_ms_{k}": v for k, v in ms(m["ms"]).items()})
+        out[f"atlas{i}_bow_words"] = np.asarray(m["loop_closer"].db_words)
+        out[f"atlas{i}_bow_wts"] = np.asarray(m["loop_closer"].db_wts)
+    scalars = dict(state=int(system.state), n_kf=system.n_kf, frames_since_kf=system.frames_since_kf,
+                   inliers_at_last_kf=system.inliers_at_last_kf, n_frames=system.n_frames,
+                   has_velocity=bool(system.has_velocity), kf_times_host=list(system._kf_times_host),
+                   kf_lowq_host=list(system._kf_lowq_host), n_loops=system.loop_closer.n_loops_closed,
+                   atlas=[(m["n_kf"], m["traj_end"], m["gen"], list(m["kf_times"]), list(m["kf_lowq"]),
+                           [np.asarray(x, np.float64).tolist() for x in m["merge_prior"][:2]]
+                           + list(m["merge_prior"][2:])) for m in system.atlas_maps])
+    return out, scalars
+
+
+def assert_loaded(written, loaded):
+    """``loaded`` (a system after load_map) holds exactly what ``written``
+    (the system that saved) held."""
+    (a, sa), (b, sb) = system_arrays(written), system_arrays(loaded)
+    assert a.keys() == b.keys()
+    for k in a:
+        assert a[k].dtype == b[k].dtype and a[k].shape == b[k].shape, k
+        np.testing.assert_array_equal(b[k], a[k], err_msg=k)
+    assert sa == sb
+
+
+def track(system, imgs, t0, stashes=None):
+    for i, (il, ir) in enumerate(imgs):
+        system.track_stereo(il, ir, t0 + i / chip_smoke.FPS)
+        if stashes is not None and getattr(system, "_loc_prev", None) is not None:
+            if not stashes or stashes[-1] is not system._loc_prev:
+                stashes.append(system._loc_prev)
+    system.flush_decisions()
+    return system.trajectory_arrays()
+
+
+def test_checkpoints_cross_packages(loops, extra, tmp_path):
+    """A map that either package saves loads in the other exactly, with a
+    shelved Atlas map and its merge prior; each snapshot, loaded by both
+    packages, tracks two more frames alike; a v1 snapshot's dense BoW
+    databases load as the rows that were saved; other capacities raise."""
+    cfg = loops[3]
+    t_next = N_FRAMES / chip_smoke.FPS
+    for name, written in (("jax", loops[0]["system"]), ("port", loops[1]["system"])):
+        path = str(tmp_path / f"{name}.npz")
+        written.save_map(path)
+        both = {pkg: new_system(pkg, cfg) for pkg in ("jax", "port")}
+        for pkg, system in both.items():
+            system.load_map(path)
+            assert_loaded(written, system)
+        trajs = [track(system, extra[:2], t_next) for system in both.values()]
+        d_centre, d_rot = chip_smoke.trajectory_diff(*trajs)
+        assert len(d_centre) == 2 and d_centre.max() <= 2e-3 and d_rot.max() <= 1e-3, (d_centre, d_rot)
+        # a shelved map with its merge prior crosses over too: each resumed
+        # system shelves its map and the other package loads it
+        for pkg, system in both.items():
+            system._create_map_in_atlas()
+            shelf_path = str(tmp_path / f"{name}_{pkg}_shelved.npz")
+            system.save_map(shelf_path)
+            other = new_system("port" if pkg == "jax" else "jax", cfg)
+            other.load_map(shelf_path)
+            assert len(other.atlas_maps) == 1
+            assert_loaded(system, other)
+    # a v1 snapshot carried dense [K, n_words] databases: both packages
+    # take the same top rows from them, the rows that were saved
+    z = dict(np.load(shelf_path))
+    n_words = loops[1]["system"].loop_closer.vocab.n_words
+    for prefix in ("lc_bow", "atlas0_bow"):
+        words, wts = z.pop(f"{prefix}_words"), z.pop(f"{prefix}_wts")
+        dense = np.zeros((words.shape[0], n_words), np.float32)
+        rows = np.nonzero(words >= 0)
+        dense[rows[0], words[rows]] = wts[rows]
+        z[f"{prefix}_db"] = dense
+    v1_path = str(tmp_path / "v1.npz")
+    np.savez_compressed(v1_path, **z)
+    for pkg in ("jax", "port"):
+        system = new_system(pkg, cfg)
+        system.load_map(v1_path)
+        for lc, key in ((system.loop_closer, "lc_bow"), (system.atlas_maps[0]["loop_closer"], "atlas0_bow")):
+            saved = np.load(shelf_path)
+            np.testing.assert_array_equal(np.asarray(lc.db_words), saved[f"{key}_words"])
+            np.testing.assert_array_equal(np.asarray(lc.db_wts), saved[f"{key}_wts"])
+    small = dataclasses.replace(cfg, capacity=dataclasses.replace(cfg.capacity, max_landmarks=2048))
+    with pytest.raises(ValueError, match="capacity mismatch"):
+        new_system("port", small).load_map(str(tmp_path / "jax.npz"))
+
+
+def test_localization_mode(loops, extra):
+    """Localization mode in both packages: four more frames tracked with
+    no keyframe inserted and no map change, poses within 2e-3 m / 1e-3
+    rad."""
+    systems = [loops[0]["system"], loops[1]["system"]]
+    for s in systems:
+        s.activate_localization_mode()  # decides what is pending first
+        assert s.localization_only
+    before = [(dict(s.stats), s.n_kf, np.asarray(s.ms.obs_lm).copy()) for s in systems]
+    trajs = [track(s, extra, N_FRAMES / chip_smoke.FPS, LOC_STASHES if s is systems[0] else None)
+             for s in systems]
+    for s, (stats, n_kf, obs) in zip(systems, before):
+        assert s.stats == stats and s.n_kf == n_kf and s.state == 1
+        np.testing.assert_array_equal(np.asarray(s.ms.obs_lm), obs)
+    d_centre, d_rot = chip_smoke.trajectory_diff(*(tuple(a[-4:] for a in tr) for tr in trajs))
+    assert d_centre.max() <= 2e-3 and d_rot.max() <= 1e-3, (d_centre, d_rot)
+
+
+def test_loc_vo_fallback(loops, extra):
+    """The localization-mode VO fallback on one pair of the reference's
+    localization run: its stash (a tracked frame and its pose) and the
+    frame it stashed two frames later; the same verdict, pose and velocity
+    within 1e-4 (rotation entries) and 1e-4 m."""
+    j = loops[0]["system"]
+    assert j.localization_only and len(LOC_STASHES) >= 3
+    cfg = loops[3]
+    (prev, (R_p, t_p)), (cur, _) = LOC_STASHES[0], LOC_STASHES[2]
+    to_t = lambda f: tfe.frame_from_numpy({k: None if v is None else np.asarray(v) for k, v in f._asdict().items()},
+                                          "cpu")
+    port = new_system("port", cfg)
+    port.activate_localization_mode()
+    port._loc_prev = (to_t(prev), (torch.from_numpy(np.asarray(R_p)), torch.from_numpy(np.asarray(t_p))))
+    ok_t = port._loc_vo_fallback(to_t(cur))
+    j._loc_prev = (prev, (R_p, t_p))
+    ok_j = j._loc_vo_fallback(cur)
+    assert ok_t is ok_j is True
+    for name in ("R_cw", "t_cw", "vel_R", "vel_t"):
+        np.testing.assert_allclose(getattr(port, name).numpy(), np.asarray(getattr(j, name)), rtol=0, atol=1e-4,
+                                   err_msg=name)
+    assert port.has_velocity and port._loc_prev[0] is not None

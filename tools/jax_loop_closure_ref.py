@@ -14,7 +14,9 @@ frame 80 it flushes the deferred decisions and injects bench.py's drift
 Prints one JSON line: the loops closed, the last closure
 ``(kf_idx, cand, degrees, metres, source)``, the frame whose background
 slice corrected the map, the global-BA chunks run, the hypothesis steps and
-verifications, the keyframes, lifecycle counters, landmarks, final state,
+verifications, the frames decided lost (``_handle_lost`` calls), the
+successful relocalizations and the frames they happened at, the keyframes,
+lifecycle counters, landmarks, final state,
 ``eval.ate.ate_rmse`` over all frames and the run's seconds. chip_smoke.py
 records these as ``REF_LOOP``. ``--out`` also writes the per-frame
 trajectory (times, centres, rotations) and the ground truth to an npz.
@@ -94,8 +96,22 @@ def main() -> int:
     scene = synthetic.default_scene()
     Rs, ts = synthetic.make_trajectory(N_LOOP, motion="outback", speed=SPEED)
     slam = SlamSystem(cfg)
-    counts = {"gba_chunks": 0, "hypothesis_steps": 0, "verifications": 0, "corrected_at_frame": []}
+    counts = {"gba_chunks": 0, "hypothesis_steps": 0, "verifications": 0, "corrected_at_frame": [],
+              "lost_frames": 0, "relocalizations": 0, "relocalized_at_frame": []}
     lc_cls = loop_closing.LoopCloser
+    handle_lost, relocalize = slam._handle_lost, slam._relocalize
+
+    def lost_counted(frame):
+        counts["lost_frames"] += 1
+        return handle_lost(frame)
+
+    def reloc_counted(frame):
+        ok = relocalize(frame)
+        if ok:
+            counts["relocalizations"] += 1
+            counts["relocalized_at_frame"].append(slam.n_frames - 1)
+        return ok
+    slam._handle_lost, slam._relocalize = lost_counted, reloc_counted
 
     def counted(name, key):
         fn = getattr(lc_cls, name)
