@@ -95,6 +95,29 @@ Phase 7  the Atlas merge pass at bench scale: the scenario of the JAX
          (MERGE_REF_READS, and phase 6's for the loop and lost path).
          ``masked_best2`` is then held exactly to its plain version at the
          inputs of the merge verification's tracking refinement, and timed.
+Phase 8  the stereo-inertial pass at bench scale (bench.py's
+         ``bench_stereo_inertial``): ``SlamSystem.track_stereo_inertial``
+         with bench.py's ``build_config(True)`` over 130 frames of
+         ``synthetic.AnalyticTrajectory`` at 20 fps with 200 Hz IMU samples
+         (``bench.py:301-324``), rendered on the card; a warm-up pass (which
+         records the kernels' inputs on one inertial frame and counts that
+         frame's stream operations), a pass that blocks on each frame's pose
+         (frame wall p50/p99; every tracked frame under the sync debug
+         mode, its synchronizing calls reported by the slice it serviced)
+         and a throughput pass (frames/s, launches, peak memory). Prints
+         the device ms of one per-frame preintegration, VIO
+         step, init-FIBA slice, VI local-BA slice and, when a loop closes, the
+         4-DoF correction and one inertial GBA sweep slice, and the stream
+         operations of one preintegration and one VIO step. It fails unless
+         the final state is OK, the IMU initializes at the JAX reference's
+         keyframe count (REF_SI, ``tools/jax_si_ref.py``), the loops closed
+         equal the reference's, the keyframes are within 2 of its, the ATE is
+         at most its plus 5 mm, the final gravity is within 0.01 rad of its,
+         the VI local-BA slice and the VIO step capture in a CUDA graph, two
+         runs of a VI local-BA slice give the same bits, frames that service
+         no slice make no synchronizing call, and the three kernels
+         equal their plain versions at the inertial frame's inputs with one
+         device kernel per call.
 
 The last stdout line is {"ok": true, "device": {...}}; the line before it
 lists every kernel with its launches, error, times and bound, and the
@@ -146,6 +169,22 @@ REF_ATE_M = 0.005604550522747823
 ATE_MARGIN = 0.005
 MIN_LOOP_KF = 10
 SMALL_LOOP_FRAMES = 16
+# phase 8: bench.py's stereo-inertial pass (a 200 Hz IMU); the frame of the
+# warm-up pass whose kernel inputs and stream operations are recorded (the
+# IMU is initialized and the per-frame VIO runs); the keyframe and gravity
+# tolerances against REF_SI (keyframe decisions follow the device's speed)
+SI_FRAMES, SI_IMU_RATE, SI_PROFILE_FRAME = 130, 200.0, 80
+SI_KF_TOL, SI_GRAVITY_TOL = 2, 0.01
+# tools/jax_si_ref.py: the JAX reference's run of phase 8's pass on a CPU
+# (one device, asynchronous dispatch off)
+REF_SI = dict(ate_m=0.0035529118298487233, state=1, n_kf=14,
+              keyframe_frames=[0, 5, 13, 25, 33, 45, 53, 65, 73, 85, 93, 105, 113, 125],
+              imu_init=dict(frame=65, n_kf=8, gravity=[0.45855143666267395, 9.788538932800293,
+                                                       -0.4586262106895447]),
+              gravity_end=[0.45982393622398376, 9.78839111328125, -0.4604946970939636],
+              loops_closed=0, lost_frames=0, landmarks=2065)
+# the small stereo-inertial pass of the CPU tests and the cuda test: 10 fps
+SMALL_SI = dict(frames=22, fps=10.0)
 SLEEP_MS = 400  # the sleep kernel that a slice call must return before
 # Phase 6: bench.py's loop-closure latency pass (``bench_loop_latency``):
 # bench.py's stereo configuration, its 150-frame out-and-back sequence at
@@ -495,6 +534,65 @@ def gather_edge_inputs(R, W, K, ph, pw, row_type, col_type, dev):
             cols[5] = 2 ** 40
     as_t = lambda a, t: torch.from_numpy(a.astype(t)).to(dev)
     return torch.from_numpy(img).to(dev), as_t(rows, row_type), as_t(cols, col_type), ph, pw
+
+
+def main_path_checks(calls, label=""):
+    """The timed checks of the kernel calls recorded on a main path
+    (``calls``: kernel -> argument tuples): (kernel, case, wrapper, plain,
+    args, bound, library call or None). The matcher's tracking calls come
+    first: theirs is the main path's shape."""
+    from orb_slam3_detailed_comments_kor_tpu_torch.ops import cuda_fast, cuda_gather, cuda_matching
+
+    checks = []
+    for flat, hs, ws, th_hi, th_lo in calls["fast_nms"]:
+        checks.append(("fast_nms", label + "x".join(map(str, flat.shape)), cuda_fast.fast_nms,
+                       cuda_fast.fast_nms_plain, (flat, hs, ws, th_hi, th_lo),
+                       fast_nms_bound(flat, hs, ws, th_hi, th_lo), None))
+    for img2d, rows, cols, ph, pw in calls["gather_patches"]:
+        # kernel and plain version take the raw corners, as the main path
+        # hands them; the library call gets them clamped, as int64
+        ri = torch.clamp(rows, 0, img2d.shape[0] - ph).long()
+        ci = torch.clamp(cols, 0, img2d.shape[1] - pw).long()
+        library = lambda _i=img2d, _r=ri, _c=ci, _ph=ph, _pw=pw: _i.unfold(0, _ph, 1).unfold(1, _pw, 1)[_r, _c]
+        checks.append(("gather_patches", label + f"{tuple(img2d.shape)} K={rows.shape[0]} {ph}x{pw} "
+                       f"corners {rows.dtype}/{cols.dtype}".replace("torch.", ""),
+                       cuda_gather.gather_patches, cuda_gather.gather_patches_plain,
+                       (img2d, rows, cols, ph, pw), gather_bound(img2d, rows, cols, ph, pw), library))
+    for a, b, m in sorted(calls["masked_best2"], key=lambda c: -c[0].shape[0]):
+        for d in (a, b):  # the main path hands the kernel packed descriptors
+            if d.dtype != torch.int32 or d.shape[-1] != 8 or not d.is_contiguous():
+                raise AssertionError(f"matcher given {d.dtype} {tuple(d.shape)}, not packed int32 [.,8]")
+        checks.append(("masked_best2", label + f"{a.shape[0]}x{b.shape[0]} geometric mask",
+                       cuda_matching.fused_masked_best2, cuda_matching.fused_masked_best2_plain,
+                       (a, b, m), matcher_bound(a, b, m), None))
+    return checks
+
+
+@contextlib.contextmanager
+def recording_kernel_calls(calls):
+    """Within the block each kernel wrapper's arguments are appended to
+    ``calls[kernel]``; its launches still count on the wrapper."""
+    from orb_slam3_detailed_comments_kor_tpu_torch.ops import cuda_fast, cuda_gather, cuda_matching
+
+    wrapped = ((cuda_fast, "fast_nms", "fast_nms"), (cuda_gather, "gather_patches", "gather_patches"),
+               (cuda_matching, "fused_masked_best2", "masked_best2"))
+    originals = {}
+    for mod, name, key in wrapped:
+        fn = originals[key] = getattr(mod, name)
+
+        def spy(*args, _fn=fn, _key=key):
+            calls.setdefault(_key, []).append(args)
+            return _fn(*args)
+
+        spy.launches = 0  # the wrapper counts through its module name: the spy, here
+        setattr(mod, name, spy)
+    try:
+        yield
+    finally:
+        for mod, name, key in wrapped:
+            spy = getattr(mod, name)
+            setattr(mod, name, originals[key])
+            originals[key].launches += spy.launches
 
 
 def device_kernels(fn, attempts=3):
@@ -1400,6 +1498,340 @@ def phase7(dev, counters, per_kernel, smi):
     return rec
 
 
+def si_config(small=False):
+    """The port's SLAMConfig of the stereo-inertial pass: bench.py's
+    ``build_config(True)`` (IMU_STEREO, 480x752, 1200 features, 64
+    keyframes, 16384 landmarks, 4096 local, a keyframe at least every 10
+    frames, a 200 Hz IMU), or (small) the 240x376 / 600-feature geometry at
+    10 fps with 32 keyframe slots, a keyframe every second frame and
+    synchronous decisions, so that IMU initialization comes after about 16
+    frames."""
+    from orb_slam3_detailed_comments_kor_tpu_torch.config import (
+        CameraConfig, CapacityConfig, IMUConfig, ORBConfig, SLAMConfig, SensorType, TrackingConfig,
+    )
+
+    if small:
+        h, w, fx = 240, 376, 230.0
+        return SLAMConfig(
+            sensor=SensorType.IMU_STEREO,
+            camera=CameraConfig(width=w, height=h, fx=fx, fy=fx, cx=w / 2.0, cy=h / 2.0,
+                                bf=BASELINE * fx, th_depth=35.0, fps=SMALL_SI["fps"]),
+            orb=ORBConfig(n_features=600, cell_size=24),
+            imu=IMUConfig(frequency=SI_IMU_RATE),
+            capacity=CapacityConfig(max_keyframes=32, max_landmarks=4096, max_local_landmarks=2048),
+            tracking=TrackingConfig(max_frames_between_kf=2, kf_ref_ratio=0.5, decision_batch=1),
+        )
+    return SLAMConfig(
+        sensor=SensorType.IMU_STEREO,
+        camera=CameraConfig(width=W, height=H, fx=FX, fy=FX, cx=W / 2.0, cy=H / 2.0, bf=BASELINE * FX),
+        orb=ORBConfig(n_features=N_FEATURES, cell_size=CELL),
+        imu=IMUConfig(frequency=SI_IMU_RATE),
+        capacity=CapacityConfig(max_keyframes=MAX_KF, max_landmarks=MAX_LM, max_local_landmarks=4096),
+        tracking=TrackingConfig(max_frames_between_kf=10),
+    )
+
+
+def render_si_sequence(cfg, n, dev, fps=FPS, rate=SI_IMU_RATE):
+    """bench.py's stereo-inertial data (``bench.py:301-324``) at ``cfg``'s
+    camera on ``dev``: the poses of ``synthetic.AnalyticTrajectory`` at
+    ``fps``, a stereo pair at each, and each frame's IMU samples since the
+    previous frame at ``rate`` (midpoint-sampled, stamped at the end of
+    their interval), made in one batch on ``dev``. Returns (ground-truth
+    body positions [n, 3] numpy, the pairs, the per-frame sample lists)."""
+    from orb_slam3_detailed_comments_kor_tpu_torch.io import synthetic
+
+    c = cfg.camera
+    cam = torch.tensor([c.fx, c.fy, c.cx, c.cy], dtype=torch.float32, device=dev)
+    scene = synthetic.default_scene(dev)
+    traj = synthetic.AnalyticTrajectory(device=dev)
+    frames, gt, stamps, mids = [], [], [], []
+    for i in range(n):
+        t = i / fps
+        R_wb, p_wb = traj.pose(t)
+        gt.append(p_wb.cpu().numpy())
+        frames.append(synthetic.stereo_pair(cam, R_wb, p_wb, BASELINE, scene, h=c.height, w=c.width)[:2])
+        row = []
+        if i > 0:
+            t0s = (i - 1) / fps
+            k = int(round((t - t0s) * rate))
+            dt = (t - t0s) / k
+            row = [(t0s + (j + 1) * dt, t0s + (j + 0.5) * dt) for j in range(k)]
+        stamps.append(row)
+        mids.extend(m for _, m in row)
+    acc, gyro = (a.cpu().numpy() for a in traj.imu_at(np.asarray(mids)))
+    imu_pf, at = [], 0
+    for row in stamps:
+        imu_pf.append([(ts, acc[at + j], gyro[at + j]) for j, (ts, _) in enumerate(row)])
+        at += len(row)
+    return np.stack(gt), frames, imu_pf
+
+
+def run_si(cfg, frames, imu_pf, dev, on_frame=None, timer=False, fps=FPS):
+    """Feed the stereo-inertial sequence to a new SlamSystem on ``dev``
+    (loop closing on, the default). ``on_frame(i, slam, call)`` may wrap
+    each frame's ``call()``. Returns (slam, the frames at which a keyframe
+    was inserted, {frame, n_kf, gravity} at IMU initialization)."""
+    from orb_slam3_detailed_comments_kor_tpu_torch.slam.system import SlamSystem
+    from orb_slam3_detailed_comments_kor_tpu_torch.utils.timing import StageTimer
+
+    slam = SlamSystem(cfg, device=dev)
+    slam.timer = StageTimer(enabled=timer)
+    kf_at, init = [], None
+    for i, (il, ir) in enumerate(frames):
+        n0 = slam.stats["kf_inserted"]
+        call = lambda _i=i, _l=il, _r=ir: slam.track_stereo_inertial(_l, _r, _i / fps, imu_pf[_i])
+        on_frame(i, slam, call) if on_frame else call()
+        if slam.stats["kf_inserted"] != n0:
+            kf_at.append(i)
+        if init is None and slam.imu_initialized:
+            init = dict(frame=i, n_kf=slam.n_kf, gravity=slam.gravity.cpu().tolist())
+    return slam, kf_at, init
+
+
+def gravity_angle(a, b):
+    """Angle (rad) between two gravity vectors, in float64."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    c = np.cross(a, b)
+    return float(np.arctan2(np.linalg.norm(c), a @ b))
+
+
+@contextlib.contextmanager
+def recording_last_call(module, name, store):
+    """Within the block ``store[name]`` holds the arguments of the latest
+    call of ``module.name`` (args, kwargs)."""
+    fn = getattr(module, name)
+
+    def spy(*a, **k):
+        store[name] = (a, k)
+        return fn(*a, **k)
+    setattr(module, name, spy)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def phase8(dev, counters, per_kernel, smi):
+    """Phase 8: bench.py's stereo-inertial pass at bench scale (see the
+    module docstring). Prints its JSON line, raises on a failed check,
+    holds the three kernels against their plain versions at one inertial
+    frame's inputs (into ``per_kernel``) and returns the pass's record."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from orb_slam3_detailed_comments_kor_tpu_torch.eval import ate
+    from orb_slam3_detailed_comments_kor_tpu_torch.models import vocabulary as voc
+    from orb_slam3_detailed_comments_kor_tpu_torch.optim import vio
+    from orb_slam3_detailed_comments_kor_tpu_torch.slam import inertial, loop_closing
+    from orb_slam3_detailed_comments_kor_tpu_torch.slam import system as slam_mod
+    from orb_slam3_detailed_comments_kor_tpu_torch.utils.host_read import HostRead
+
+    cfg = si_config()
+    t_p8 = time.time()
+    gt8, frames8, imu8 = render_si_sequence(cfg, SI_FRAMES, dev)
+    voc.load_default(dev)
+    torch.cuda.synchronize()
+    log(f"phase 8: rendered {SI_FRAMES} frames and their IMU samples in {time.time() - t_p8:.1f} s")
+
+    # the warm-up pass, up to and with one inertial frame (initialized IMU,
+    # VIO on), whose kernel inputs it records and whose stream operations it
+    # counts
+    kcalls, frame_ops = {}, {}
+
+    def warm_frame(i, slam, call):
+        if i != SI_PROFILE_FRAME:
+            call()
+            return
+        if not slam.imu_initialized:
+            raise AssertionError(f"phase 8: the IMU is not initialized at frame {i}")
+        torch.cuda.synchronize()
+        with recording_kernel_calls(kcalls), profile(activities=[ProfilerActivity.CPU,
+                                                                  ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        frame_ops.update(
+            stream_ops=sum(1 for e in prof.events() if e.name in STREAM_OPS),
+            device_kernels=sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA),
+            kind=slam._bg_queue[0][0] if slam._bg_queue else "tracking")
+
+    warm, warm_kf, warm_init = run_si(cfg, frames8[:SI_PROFILE_FRAME + 1], imu8, dev, warm_frame)
+    warm.flush_decisions()
+    del warm
+    torch.cuda.synchronize()
+    log(f"phase 8: warm-up pass in {time.time() - t_p8:.1f} s; frame {SI_PROFILE_FRAME}: {frame_ops}")
+    run_checks(main_path_checks(kcalls, f"inertial frame {SI_PROFILE_FRAME}: "), counters, per_kernel)
+
+    # the latency pass: block on each frame's pose; every tracked frame runs
+    # under the sync debug mode with the batched decision read left out, so
+    # each synchronizing call counted is a host read of a value
+    lat, frames_rec = [], []
+    read_numpy = HostRead.numpy
+
+    def unwatched_read(self):
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return read_numpy(self)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+
+    def timed(i, slam, call):
+        kind = slam._bg_queue[0][0] if slam._bg_queue else (
+            "gba_chunk" if slam._gba_chunks_left > 0 else "tracking")
+        watch, was_init = i > 0, slam.imu_initialized
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if watch:
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                call()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        slam.t_cw.cpu()  # block on the frame's pose, as bench.py's latency pass does
+        lat.append((time.perf_counter() - t0) * 1e3)
+        syncs = [str(w.message).splitlines()[0] for w in caught if SYNC_WARNING in str(w.message)]
+        if slam.imu_initialized and not was_init:
+            kind = "imu_init"  # the frame whose decision initialized the IMU
+        frames_rec.append(dict(frame=i, kind=kind, watched=watch, after_init=was_init, syncs=len(syncs),
+                               sync_calls=sorted(set(syncs))[:3], ms=lat[-1]))
+
+    HostRead.numpy = unwatched_read
+    try:
+        lat_slam, lat_kf, lat_init = run_si(cfg, frames8, imu8, dev, timed)
+    finally:
+        HostRead.numpy = read_numpy
+    lat_state = lat_slam.state
+    del lat_slam
+    lat_s = np.array(lat[5:])
+
+    # the throughput pass: the launch counters and the peak memory are this
+    # pass's; it records the last per-frame IMU and VIO calls and the loop
+    # corrections for the slices timed below
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    last, corrections = {}, []
+    correct = loop_closing.LoopCloser.correct
+
+    def correct_logged(self, *a, **k):
+        corrections.append(dict(ms=a[0], args=a[1:], kwargs=k))
+        return correct(self, *a, **k)
+
+    loop_closing.LoopCloser.correct = correct_logged
+    t_pass = time.perf_counter()
+    try:
+        with recording_last_call(inertial, "advance_imu", last), recording_last_call(vio, "vio_frame_step", last):
+            slam, kf_at, init = run_si(cfg, frames8, imu8, dev, timer=True)
+            slam.t_cw.cpu()
+    finally:
+        loop_closing.LoopCloser.correct = correct
+    pass_s = time.perf_counter() - t_pass
+    launches8 = {k: fn.launches for k, fn in counters.items()}
+    peak8 = torch.cuda.max_memory_allocated() / 2**20
+    _, centers, _ = slam.trajectory_arrays()
+    ate8 = ate.ate_rmse(centers, gt8[: len(centers)])
+    g_end = slam.gravity.cpu().tolist()
+
+    # one slice of each kind alone, on the device, with the pass's inputs
+    cam8, bf, cap = slam.cam_params, cfg.camera.bf, cfg.capacity
+    ms_f, ikf_f, g_f, kf_f = slam.ms, slam.ikf, slam.gravity, slam.n_kf - 1
+
+    def vi_lba():
+        return inertial.local_vi_ba_step(ms_f, ikf_f, kf_f, g_f, cam8, slam.R_cb, slam.t_cb, bf, window=10,
+                                         lm_cap=cap.max_local_landmarks, iters=2)
+
+    slices = {
+        "preintegration": lambda: inertial.advance_imu(*last["advance_imu"][0], **last["advance_imu"][1]),
+        "vio_step": lambda: vio.vio_frame_step(*last["vio_frame_step"][0], **last["vio_frame_step"][1]),
+        "init_fiba": slam._init_fiba_slice,
+        "vi_local_ba": vi_lba,
+    }
+    if corrections:
+        c = corrections[0]
+        a, k = c["args"], c["kwargs"]
+        slices["correction_4dof"] = lambda: loop_closing._correct_core(
+            c["ms"], a[0], a[1], a[2], a[3], a[4], k["s_delta"], cam8, bf, False, k["mode"],
+            gravity=k["gravity"])
+        W = slam._INIT_FIBA_WINDOW
+        slices["gba_sweep"] = lambda: inertial.local_vi_ba_step(
+            ms_f, ikf_f, min(W - 1, kf_f), g_f, cam8, slam.R_cb, slam.t_cb, bf, window=W,
+            lm_cap=cap.max_local_landmarks, iters=2)
+    slice_ms = {k: profiled_device_ms(f) for k, f in slices.items()}
+    slice_ops = {k: stream_ops(slices[k]) for k in ("preintegration", "vio_step")}
+    capture = {k: graph_capture_error(slices[k]) for k in ("vi_local_ba", "vio_step")}
+    # the card-to-card spread of one VI local-BA slice: two runs, same inputs
+    (ms_a, ikf_a, cost_a), (ms_b, ikf_b, cost_b) = vi_lba(), vi_lba()
+    moved = float((ms_a.kf_t_cw - ms_f.kf_t_cw).abs().max())
+    spread = dict(pose_t_m=max_abs_err(ms_a.kf_t_cw, ms_b.kf_t_cw), pose_R=max_abs_err(ms_a.kf_R_cw, ms_b.kf_R_cw),
+                  points_m=max_abs_err(ms_a.lm_pos, ms_b.lm_pos), vel=max_abs_err(ikf_a.vel, ikf_b.vel),
+                  bias=max(max_abs_err(ikf_a.bg, ikf_b.bg), max_abs_err(ikf_a.ba, ikf_b.ba)),
+                  cost=abs(float(cost_a) - float(cost_b)))
+    watched = [f for f in frames_rec if f["watched"]]
+    si = dict(
+        frames=len(slam.trajectory), state=slam.state, latency_pass_state=lat_state,
+        keyframes=slam.n_kf, keyframe_frames=kf_at, imu_init=init, latency_pass_imu_init=lat_init,
+        warm_pass_imu_init=warm_init, gravity_end=g_end,
+        gravity_end_vs_ref_rad=gravity_angle(g_end, REF_SI["gravity_end"]),
+        loops_closed=slam.loop_closer.n_loops_closed, corrections=[
+            [c["args"][1], c["args"][2], c["kwargs"].get("mode")] for c in corrections],
+        stats=slam.stats, landmarks=int(slam.ms.lm_valid.sum()), ate_m=ate8, ref=REF_SI,
+        frame_p50_ms=float(np.percentile(lat_s, 50)), frame_p99_ms=float(np.percentile(lat_s, 99)),
+        frame_max_ms=float(lat_s.max()), frames_per_s=SI_FRAMES / pass_s, peak_mib=peak8,
+        launches=launches8, slice_device_ms=slice_ms, slice_stream_ops=slice_ops,
+        slice_graph_capture_error=capture,
+        vi_local_ba_spread=spread, vi_local_ba_moved_m=moved, inertial_frame=frame_ops,
+        syncs_by_kind={k: sum(f["syncs"] for f in watched if f["kind"] == k)
+                       for k in sorted({f["kind"] for f in watched})},
+        syncs_after_init=sum(f["syncs"] for f in watched if f["after_init"]),
+        sync_calls=sorted({c for f in watched for c in f["sync_calls"]})[:8],
+        slice_wall_ms={k: dict(count=len(v), median=float(np.median(v)), max=float(np.max(v)))
+                       for k in sorted({f["kind"] for f in frames_rec[5:]})
+                       for v in [[f["ms"] for f in frames_rec[5:] if f["kind"] == k]]},
+        host_stage_ms={k: {"count": v["count"], "p50_ms": v["p50_ms"], "max_ms": v["max_ms"],
+                           "total_ms": v["total_ms"]} for k, v in slam.timer.summary().items()},
+    )
+    log(f"phase 8 ({smi}): " + json.dumps(si))
+    log(f"phase 8: {SI_FRAMES} frames in {pass_s:.2f} s ({si['frames_per_s']:.2f} frames/s), frame wall "
+        f"p50 {si['frame_p50_ms']:.2f} ms p99 {si['frame_p99_ms']:.2f} ms; ATE {ate8 * 1e3:.3f} mm (JAX reference "
+        f"{REF_SI['ate_m'] * 1e3:.3f} mm); {slam.n_kf} keyframes (reference {REF_SI['n_kf']}); IMU init {init} "
+        f"(reference {REF_SI['imu_init']['n_kf']} keyframes); loops {si['corrections']}; slices "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in slice_ms.items())
+        + f"; {frame_ops.get('stream_ops')} stream operations in inertial frame {SI_PROFILE_FRAME} "
+        + f"(preintegration {slice_ops['preintegration']}, VIO step {slice_ops['vio_step']})"
+        + f"; peak {peak8:.1f} MiB; phase 8 took {time.time() - t_p8:.1f} s")
+    bad = []
+    if slam.state != slam_mod.TrackingState.OK or lat_state != slam_mod.TrackingState.OK:
+        bad.append(f"final state {slam.state} (latency pass {lat_state})")
+    if len(slam.trajectory) != SI_FRAMES:
+        bad.append(f"{len(slam.trajectory)} frames recorded")
+    if init is None or init["n_kf"] != REF_SI["imu_init"]["n_kf"]:
+        bad.append(f"IMU init {init}, the reference's at {REF_SI['imu_init']['n_kf']} keyframes")
+    if si["loops_closed"] != REF_SI["loops_closed"]:
+        bad.append(f"{si['loops_closed']} loops closed, the reference's {REF_SI['loops_closed']}")
+    if abs(slam.n_kf - REF_SI["n_kf"]) > SI_KF_TOL:
+        bad.append(f"{slam.n_kf} keyframes, the reference's {REF_SI['n_kf']}")
+    if not ate8 <= REF_SI["ate_m"] + ATE_MARGIN:
+        bad.append(f"ATE {ate8} m")
+    if not si["gravity_end_vs_ref_rad"] <= SI_GRAVITY_TOL:
+        bad.append(f"final gravity {si['gravity_end_vs_ref_rad']:.4f} rad from the reference's")
+    for k, err in capture.items():
+        if err is not None:
+            bad.append(f"{k}: not capturable in a CUDA graph: {err}")
+    if any(v != 0 for v in spread.values()) or moved == 0.0:
+        bad.append(f"the VI local-BA slice: spread {spread}, moved {moved}")
+    tracking_syncs = sum(f["syncs"] for f in watched if f["kind"] == "tracking")
+    if tracking_syncs:
+        bad.append(f"{tracking_syncs} synchronizing calls in tracking frames: {si['sync_calls']}")
+    for k in LAUNCHES_PER_FRAME:
+        if launches8[k] < SI_FRAMES - 1:
+            bad.append(f"{k}: {launches8[k]} launches over the pass")
+    if bad:
+        raise AssertionError("phase 8: " + "; ".join(bad))
+    return si
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--baseline-csrc", default=None,
@@ -1449,63 +1881,19 @@ def main() -> int:
     eye = torch.eye(3, device=dev)
     state1 = (R0, t0_, eye, torch.zeros(3, device=dev), torch.tensor(False, device=dev))
     calls = {"fast_nms": [], "gather_patches": [], "masked_best2": []}
-    wrapped = (
-        (cuda_fast, "fast_nms", "fast_nms"),
-        (cuda_gather, "gather_patches", "gather_patches"),
-        (cuda_matching, "fused_masked_best2", "masked_best2"),
-    )
-    originals = {}
-    for mod, name, key in wrapped:
-        fn = getattr(mod, name)
-        originals[key] = fn
-
-        def spy(*args, _fn=fn, _key=key):
-            calls[_key].append(args)
-            return _fn(*args)
-
-        spy.launches = 0  # the wrapper counts through its module name: the spy, here
-        setattr(mod, name, spy)
-    try:
+    with recording_kernel_calls(calls):
         step(ms_p1, *frames[1], state1, cam)
         torch.cuda.synchronize()
-    finally:
-        for mod, name, key in wrapped:
-            setattr(mod, name, originals[key])
     log(f"phase 1: recorded the inputs of {sum(map(len, calls.values()))} kernel calls in one tracked frame")
 
-    # (kernel, case, wrapper, plain, args, bound() or None for an edge case,
-    # which is checked but not timed, library call or None)
-    checks = []
-    (flat, hs, ws, th_hi, th_lo), = calls["fast_nms"]
-    checks.append(("fast_nms", "x".join(map(str, flat.shape)), cuda_fast.fast_nms,
-                   cuda_fast.fast_nms_plain, (flat, hs, ws, th_hi, th_lo),
-                   fast_nms_bound(flat, hs, ws, th_hi, th_lo), None))
-    for img2d, rows, cols, ph, pw in calls["gather_patches"]:
-        # kernel and plain version take the raw corners, as the main path
-        # hands them; the library call gets them clamped, as int64
-        ri = torch.clamp(rows, 0, img2d.shape[0] - ph).long()
-        ci = torch.clamp(cols, 0, img2d.shape[1] - pw).long()
-        library = lambda _i=img2d, _r=ri, _c=ci, _ph=ph, _pw=pw: _i.unfold(0, _ph, 1).unfold(1, _pw, 1)[_r, _c]
-        checks.append(("gather_patches", f"{tuple(img2d.shape)} K={rows.shape[0]} {ph}x{pw} "
-                       f"corners {rows.dtype}/{cols.dtype}".replace("torch.", ""),
-                       cuda_gather.gather_patches, cuda_gather.gather_patches_plain,
-                       (img2d, rows, cols, ph, pw), gather_bound(img2d, rows, cols, ph, pw), library))
-    gen = torch.Generator(device=dev).manual_seed(0)
-    # tracking's [4096 x 1200] calls first: they are the main path's shape
-    for a, b, m in sorted(calls["masked_best2"], key=lambda c: -c[0].shape[0]):
-        for d in (a, b):  # the main path hands the kernel packed descriptors
-            if d.dtype != torch.int32 or d.shape[-1] != 8 or not d.is_contiguous():
-                raise AssertionError(f"matcher given {d.dtype} {tuple(d.shape)}, not packed int32 [.,8]")
-        checks.append(("masked_best2", f"{a.shape[0]}x{b.shape[0]} geometric mask",
-                       cuda_matching.fused_masked_best2, cuda_matching.fused_masked_best2_plain,
-                       (a, b, m), matcher_bound(a, b, m), None))
-        if gen is not None:  # plus one random mask at the first (largest) shape
-            rand = torch.rand(m.shape, generator=gen, device=dev) > 0.7
-            rand[::97] = False  # rows with no allowed column
-            checks.append(("masked_best2", f"{a.shape[0]}x{b.shape[0]} random mask",
-                           cuda_matching.fused_masked_best2, cuda_matching.fused_masked_best2_plain,
-                           (a, b, rand), matcher_bound(a, b, rand), None))
-            gen = None
+    checks = main_path_checks(calls)
+    # plus one random mask at the matcher's largest shape
+    a, b, m = max(calls["masked_best2"], key=lambda c: c[0].shape[0])
+    rand = torch.rand(m.shape, generator=torch.Generator(device=dev).manual_seed(0), device=dev) > 0.7
+    rand[::97] = False  # rows with no allowed column
+    checks.append(("masked_best2", f"{a.shape[0]}x{b.shape[0]} random mask",
+                   cuda_matching.fused_masked_best2, cuda_matching.fused_masked_best2_plain,
+                   (a, b, rand), matcher_bound(a, b, rand), None))
     for n, m_, off in MATCH_EDGE_CASES:
         checks.append(("masked_best2", f"edge {n}x{m_} offset {off}", cuda_matching.fused_masked_best2,
                        cuda_matching.fused_masked_best2_plain, matcher_edge_inputs(n, m_, off, dev),
@@ -1769,6 +2157,11 @@ def main() -> int:
     t_p7 = time.time()
     rec7 = phase7(dev, counters, per_kernel, smi)
     phase_s["7"] = time.time() - t_p7
+
+    # ---- phase 8: the stereo-inertial pass at bench scale ------------------
+    t_p8 = time.time()
+    rec8 = phase8(dev, counters, per_kernel, smi)
+    phase_s["8"] = time.time() - t_p8
     log("phase seconds: " + json.dumps(phase_s))
 
     sources = {
@@ -1786,6 +2179,7 @@ def main() -> int:
             "launches": launches[k], "launches_per_frame": int(per_frame[k]),  # checked whole
             "launches_slam_loop": launches4[k], "launches_per_frame_slam_loop": int(per_frame4[k]),
             "launches_loop_closure_pass": rec6["launches"][k], "launches_merge_pass": rec7["launches"][k],
+            "launches_si_pass": rec8["launches"][k],
             "max_abs_err": info["max_abs_err"], "ms": main_case["ms"],
             "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
             "bound_by": main_case["bound_by"], "library_ms": main_case["library_ms"],

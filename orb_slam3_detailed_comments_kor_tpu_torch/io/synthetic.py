@@ -3,7 +3,8 @@
 Port of the pinhole path of ``orb_slam3_detailed_comments_kor_tpu/io/
 synthetic.py``: a box room of textured planes ray-cast through the camera,
 giving images with dense FAST-able texture plus exact poses and depths.
-Rendering runs on the device of the camera parameters. The texture lattice
+Rendering runs on the device of the camera parameters. Also here: the
+analytic trajectory with its exact synthetic IMU (``AnalyticTrajectory``). The texture lattice
 is the reference's ``np.random.RandomState(7)`` draw, so both packages
 render the same world.
 """
@@ -161,6 +162,103 @@ def make_trajectory(
         Rs.append(R)
         ts.append(t)
     return np.stack(Rs).astype(np.float32), np.stack(ts).astype(np.float32)
+
+
+class AnalyticTrajectory:
+    """Smooth analytic body trajectory with exact derivatives.
+
+    Position and orientation are closed-form sinusoids; velocity, specific
+    force and body rates come from forward-mode differentiation
+    (``torch.func``), evaluated in float64 at the float32 time and returned
+    as float32, so the synthetic IMU is exact to float precision. World
+    frame: x right, y down (gravity +y), z forward into the scene. Tensors
+    land on ``device``: the card unless the caller names another.
+    """
+
+    def __init__(self, scale: float = 1.0, gravity: float = 9.81, seed: int = 0,
+                 excitation: float = 1.0, device="cuda"):
+        self.device = torch.device(device)
+        self.g_w = torch.tensor([0.0, gravity, 0.0], dtype=torch.float32, device=self.device)
+        self._g64 = self.g_w.to(torch.float64)
+        a = scale
+        f = excitation
+
+        def pos(t):
+            return torch.stack([
+                0.8 * a * torch.sin(0.50 * f * t),
+                0.15 * a * torch.sin(0.90 * f * t + 1.0),
+                0.40 * a * torch.sin(0.40 * f * t + 0.3),
+            ])
+
+        def rotvec(t):
+            return torch.stack([
+                0.10 * torch.sin(0.45 * t + 0.5),
+                0.25 * torch.sin(0.30 * t),
+                0.05 * torch.sin(0.70 * t + 1.2),
+            ])
+
+        self._rotvec = rotvec
+        self._drot = torch.func.jacfwd(lambda t: lie.so3_exp(rotvec(t)))
+        self._rebind_pos(pos)
+
+    def _rebind_pos(self, pos):
+        """Swap the position law, rewiring its derivatives (velocity,
+        specific force) so the synthetic IMU stays exact."""
+        self._pos = pos
+        self._vel = torch.func.jacfwd(pos)
+        self._acc = torch.func.jacfwd(self._vel)
+
+    def _t64(self, t):
+        """Times as the reference evaluates them: rounded to float32."""
+        t = torch.as_tensor(np.asarray(t, np.float32), device=self.device)
+        return t.to(torch.float64)
+
+    def pose(self, t):
+        """(R_wb [3,3], p_wb [3]) body/camera-to-world."""
+        t = self._t64(t)
+        return (lie.so3_exp(self._rotvec(t)).to(torch.float32),
+                self._pos(t).to(torch.float32))
+
+    def velocity(self, t):
+        return self._vel(self._t64(t)).to(torch.float32)
+
+    def _imu64(self, t):
+        R = lie.so3_exp(self._rotvec(t))
+        acc_b = R.T @ (self._acc(t) - self._g64)  # specific force
+        omega_b = lie.vee(R.T @ self._drot(t))
+        return acc_b, omega_b
+
+    def imu_at(self, t):
+        """(acc_body, gyro_body) ideal measurements at time t; for a 1-D
+        array of times, [T,3] each."""
+        t = self._t64(t)
+        if t.dim() == 0:
+            acc, gyro = self._imu64(t)
+        else:
+            acc, gyro = torch.func.vmap(self._imu64)(t)
+        return acc.to(torch.float32), gyro.to(torch.float32)
+
+    def imu_batch(self, t0: float, t1: float, rate: float, max_n: int,
+                  noise_g: float = 0.0, noise_a: float = 0.0, generator=None):
+        """ImuBatch of measurements covering (t0, t1] at ``rate`` Hz, padded
+        to max_n with invalid entries; midpoint-sampled. The noise draws
+        come from ``generator`` (a ``torch.Generator``), the reference's
+        key."""
+        from orb_slam3_detailed_comments_kor_tpu_torch.ops.imu import ImuBatch
+
+        n = min(int(round((t1 - t0) * rate)), max_n)
+        dt = (t1 - t0) / max(n, 1)
+        ts = t0 + (np.arange(max_n) + 0.5) * dt
+        accs, gyros = self.imu_at(ts)
+        if generator is not None and (noise_g > 0 or noise_a > 0):
+            ng = torch.randn(gyros.shape, generator=generator, device=generator.device).to(self.device)
+            na = torch.randn(accs.shape, generator=generator, device=generator.device).to(self.device)
+            gyros = gyros + noise_g * np.sqrt(rate) * ng / np.sqrt(rate) / np.sqrt(dt)
+            accs = accs + noise_a * na / np.sqrt(dt)
+        valid = torch.arange(max_n, device=self.device) < n
+        return ImuBatch(acc=accs, gyro=gyros,
+                        dt=torch.where(valid, torch.tensor(dt, dtype=torch.float32, device=self.device), 0.0),
+                        valid=valid)
 
 
 def stereo_pair(

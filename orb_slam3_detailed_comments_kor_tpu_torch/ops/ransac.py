@@ -257,10 +257,13 @@ def jacfwd64(f, p0, *args):
     returned in p0's dtype: forward-mode differentiation in torch gives a
     float32 expression divided by (or dividing) a Python float a float64
     tangent, which the next product of tensors rejects. Float tensors
-    among ``args`` (nested in tuples and dicts) go to float64 as well."""
+    among ``args`` (nested in tuples, NamedTuples and dicts) go to
+    float64 as well."""
     def up(a):
         if isinstance(a, dict):
             return {k: up(v) for k, v in a.items()}
+        if isinstance(a, tuple) and hasattr(a, "_fields"):  # a NamedTuple
+            return type(a)(*(up(v) for v in a))
         if isinstance(a, (tuple, list)):
             return type(a)(up(v) for v in a)
         if isinstance(a, torch.Tensor) and a.is_floating_point():

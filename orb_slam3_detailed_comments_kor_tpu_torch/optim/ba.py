@@ -1,10 +1,10 @@
 """Levenberg-Marquardt bundle adjustment: motion-only and Schur-complement.
 
-Port of ``pose_optimization``, ``BAResult``, ``_eval_weights``,
+Port of ``pose_optimization`` (with its IMU pose prior), ``BAResult``, ``_eval_weights``,
 ``_build_normal_blocks``, ``bundle_adjust``, ``_schur_matvec``, ``_pcg``
 and ``bundle_adjust_cg`` from
 ``orb_slam3_detailed_comments_kor_tpu/optim/ba.py`` (the paths with no
-pose prior and no camera rig).
+camera rig).
 
 ``pose_optimization`` (``Optimizer::PoseOptimization`` analog) runs LM on
 one pose against fixed 3-D points, ``rounds`` x ``iters`` iterations with
@@ -72,9 +72,8 @@ def pose_optimization(
     cam_model: str = "pinhole",
 ) -> PoseOptResult:
     """Optimize one pose against fixed points X [N,3], one observation each
-    (uv/u_right/inv_sigma2/valid [N])."""
-    if prior is not None:
-        raise NotImplementedError("pose priors are not ported")
+    (uv/u_right/inv_sigma2/valid [N]). ``prior``: optional (R_p, t_p,
+    info_R, info_t), a whitened 6-DoF pull toward an IMU-predicted pose."""
     n = X.shape[0]
     dev = X.device
     obs = Observations(
@@ -97,15 +96,34 @@ def pose_optimization(
     def chi2_of(r):
         return torch.sum(r * r, dim=-1) * inv_sigma2
 
-    def cost_of(chi2, mask, use_huber):
+    def prior_cost(R, t):
+        if prior is None:
+            return 0.0
+        R_p, t_p, info_R, info_t = prior
+        r_R = lie.so3_log(R @ R_p.T)
+        return info_R * torch.sum(r_R ** 2) + info_t * torch.sum((t - t_p) ** 2)
+
+    def prior_terms(R, t):
+        """(H [6,6], b [6]) of the prior for the left-multiplied update."""
+        R_p, t_p, info_R, info_t = prior
+        r_R = lie.so3_log(R @ R_p.T)   # d/dθ ≈ I
+        r_t = t - t_p                  # d/dθ = −[t]×, d/dδt = I
+        tx = lie.hat(t)
+        eye3 = torch.eye(3, dtype=X.dtype, device=dev)
+        H = torch.cat([torch.cat([info_R * eye3 + info_t * (tx.T @ tx), -info_t * tx.T], 1),
+                       torch.cat([-info_t * tx, info_t * eye3], 1)], 0)
+        b = torch.cat([-info_R * r_R + info_t * (tx.T @ r_t), -info_t * r_t])
+        return H, b
+
+    def cost_of(chi2, mask, use_huber, R, t):
         c = _robust_cost(chi2, delta2) if use_huber else chi2
-        return torch.sum(c * mask)
+        return torch.sum(c * mask) + prior_cost(R, t)
 
     R, t, inlier = R_cw, t_cw, valid
     for round_idx in range(rounds):
         use_huber = round_idx < 2
         r0, _, dok0 = residual(R, t, inlier & valid)
-        best_cost = cost_of(chi2_of(r0), inlier & valid & dok0, use_huber)
+        best_cost = cost_of(chi2_of(r0), inlier & valid & dok0, use_huber, R, t)
         lam = torch.full((), 1e-3, dtype=X.dtype, device=dev)  # no host copy
         for _ in range(iters):
             active = inlier & valid
@@ -122,13 +140,17 @@ def pose_optimization(
             Jw = (Jp * w[:, None, None]).reshape(-1, 6).T
             H = Jw @ Jp.reshape(-1, 6)
             b = -(Jw @ r.reshape(-1))
+            if prior is not None:
+                H_pr, b_pr = prior_terms(R, t)
+                H = H + H_pr
+                b = b + b_pr
             Hd = H + lam * torch.diag(torch.diagonal(H)) + 1e-8 * eye6
             delta = torch.linalg.solve_ex(Hd, b)[0]
             dR, dt = lie.se3_exp(delta)
             R_new = dR @ R
             t_new = dR @ t + dt
             r2, _, dok2 = residual(R_new, t_new, active)
-            cost_new = cost_of(chi2_of(r2), active & dok2, use_huber)
+            cost_new = cost_of(chi2_of(r2), active & dok2, use_huber, R_new, t_new)
             accept = cost_new < best_cost
             R = torch.where(accept, R_new, R)
             t = torch.where(accept, t_new, t)

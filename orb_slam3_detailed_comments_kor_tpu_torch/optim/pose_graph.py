@@ -1,14 +1,17 @@
 """Essential-graph pose optimization (loop correction back-end).
 
 Port of ``PoseGraphEdges``, ``make_edges_from_poses``,
-``optimize_pose_graph_se3`` and ``optimize_pose_graph_sim3`` from
+``optimize_pose_graph_se3``, ``optimize_pose_graph_sim3`` and
+``optimize_pose_graph_4dof`` from
 ``orb_slam3_detailed_comments_kor_tpu/optim/pose_graph.py``
 (``Optimizer::OptimizeEssentialGraph``): relative pose measurements over
 the essential graph (spanning tree + strong covisibility + loop edges)
 spread a loop's discrepancy over the trajectory. LM over batched edge
 residuals with a dense [D·K] solve:
 - SE(3): r = log(T_meas⁻¹ ∘ T_i ∘ T_j⁻¹) ∈ R⁶ (stereo / RGB-D);
-- Sim(3): 7-D with a per-keyframe scale (monocular).
+- Sim(3): 7-D with a per-keyframe scale (monocular);
+- 4-DoF: the SE(3) residual with each keyframe free only in yaw about
+  gravity and in translation (inertial maps).
 
 Edge Jacobians come from forward-mode differentiation, per edge, as the
 reference's ``vmap(jacfwd)``. The normal equations are accumulated with
@@ -167,3 +170,40 @@ def optimize_pose_graph_sim3(R_cw, t_cw, s_cw, edges: PoseGraphEdges, fixed, ite
 
     R, t, s = _lm((R_cw, t_cw, s_cw), edges, fixed, iters, 7, _sim3_edge_residual, update)
     return lie.project_to_so3(R), t, s
+
+
+def _apply_local_4dof(xi, R, t, g_unit):
+    """xi = [psi, dp(3)]: a world-side yaw about gravity, then a shift of
+    the camera centre: T_cw' = T_cw ∘ W⁻¹, c' = W c + dp."""
+    W = lie.so3_exp(xi[..., 0:1] * g_unit)
+    R2 = R @ W.transpose(-1, -2)
+    c = -(R.transpose(-1, -2) @ t[..., None])[..., 0]
+    c2 = (W @ c[..., None])[..., 0] + xi[..., 1:]
+    return R2, -(R2 @ c2[..., None])[..., 0]
+
+
+def _4dof_edge_residual(x, Ri0, ti0, gi, Rj0, tj0, gj, Rm, tm, sm):
+    Ri, ti = _apply_local_4dof(x[..., :4], Ri0, ti0, gi)
+    Rj, tj = _apply_local_4dof(x[..., 4:], Rj0, tj0, gj)
+    Rji, tji = lie.se3_inverse(Rj, tj)
+    R_ij, t_ij = lie.se3_compose(Ri, ti, Rji, tji)
+    Rm_i, tm_i = lie.se3_inverse(Rm, tm)
+    Re, te = lie.se3_compose(Rm_i, tm_i, R_ij, t_ij)
+    return lie.se3_log(Re, te)
+
+
+def optimize_pose_graph_4dof(R_cw, t_cw, g_dir, edges: PoseGraphEdges, fixed, iters: int = 15):
+    """4-DoF essential graph (``OptimizeEssentialGraph4DoF``,
+    ``Optimizer.cc:7523``): inertial maps observe roll, pitch and scale
+    through gravity, so a loop correction may move each keyframe only by a
+    yaw about the world gravity direction ``g_dir`` and a translation of its
+    camera centre. Full 6-D SE(3) edge residual. Returns (R', t')."""
+    K = R_cw.shape[0]
+    g_unit = (g_dir / torch.linalg.vector_norm(g_dir)).expand(K, 3)
+
+    def update(dx, R, t, g):
+        R2, t2 = _apply_local_4dof(dx, R, t, g)
+        return R2, t2, g
+
+    R, t, _ = _lm((R_cw, t_cw, g_unit), edges, fixed, iters, 4, _4dof_edge_residual, update)
+    return lie.project_to_so3(R), t

@@ -8,7 +8,9 @@ model, the BoW database (``lc_bow_words``/``lc_bow_wts``), each shelved
 Atlas map under ``atlas{i}_`` and the host scalars as JSON bytes in
 ``meta_json``. Packed descriptors cross the boundary as uint32 words (the
 port keeps their int32 bit patterns), so a map that either package saves
-loads in the other. Inertial snapshots are not ported and raise.
+loads in the other. Inertial maps add their per-keyframe inertial block
+(``ikf_*``), gravity, the frame velocity and the IMU clock, for the active
+map and each shelved one (``atlas{i}_ikf_*``, ``atlas{i}_gravity``).
 """
 
 from __future__ import annotations
@@ -59,6 +61,19 @@ def _unpack_map(prefix: str, z, like: msx.MapState, device) -> msx.MapState:
     return msx.MapState(**fields)
 
 
+def _pack_tuple(prefix: str, tup, out: dict) -> None:
+    for name, t in tup._asdict().items():
+        out[f"{prefix}{name}"] = t.detach().cpu().numpy()
+
+
+def _unpack_tuple(prefix: str, z, device):
+    """The inertial keyframe block saved under ``prefix``."""
+    from orb_slam3_detailed_comments_kor_tpu_torch.slam.inertial import InertialKF
+
+    return InertialKF(**{name: torch.from_numpy(np.ascontiguousarray(z[f"{prefix}{name}"])).to(device)
+                         for name in InertialKF._fields})
+
+
 def _sparse_from_dense(dense: torch.Tensor):
     """v1 snapshots carried the dense [K, n_words] database: its top-TOPW
     rows, the lower word first among equal weights (``jax.lax.top_k``)."""
@@ -70,8 +85,6 @@ def _sparse_from_dense(dense: torch.Tensor):
 def save_map(slam: "SlamSystem", path: str) -> None:
     """Snapshot the active map, the tracking state and the shelved maps to
     ``path`` (.npz)."""
-    if slam.cfg.is_inertial:
-        raise NotImplementedError("inertial snapshots are not ported")
     out: dict = {}
     _pack_map("ms_", slam.ms, out)
     meta = {
@@ -87,6 +100,13 @@ def save_map(slam: "SlamSystem", path: str) -> None:
     }
     for name in ("R_cw", "t_cw", "vel_R", "vel_t"):
         out[name] = getattr(slam, name).cpu().numpy()
+    if slam.cfg.is_inertial:
+        _pack_tuple("ikf_", slam.ikf, out)
+        out["gravity"] = slam.gravity.cpu().numpy()
+        out["frame_vel"] = slam.frame_vel.cpu().numpy()
+        meta["imu_initialized"] = bool(slam.imu_initialized)
+        meta["last_kf_time"] = None if slam._last_kf_time is None else float(slam._last_kf_time)
+        meta["last_frame_time"] = None if slam._last_frame_time is None else float(slam._last_frame_time)
     lc = slam.loop_closer
     if lc.db_words is not None:
         out["lc_bow_words"] = lc.db_words.cpu().numpy()
@@ -110,6 +130,10 @@ def save_map(slam: "SlamSystem", path: str) -> None:
                 float(mp[2]) if len(mp) > 2 else 0.0,
                 float(mp[3]) if len(mp) > 3 else 0.0,
             ]
+        if "ikf" in m:
+            _pack_tuple(f"atlas{i}_ikf_", m["ikf"], out)
+            out[f"atlas{i}_gravity"] = m["gravity"].cpu().numpy()
+            meta[f"atlas{i}_imu_initialized"] = bool(m.get("imu_initialized", False))
         meta[f"atlas{i}_kf_times"] = [float(x) for x in m.get("kf_times", [])]
         meta[f"atlas{i}_kf_lowq"] = [bool(x) for x in m.get("kf_lowq", [])]
     meta["kf_times_host"] = [float(x) for x in slam._kf_times_host]
@@ -121,14 +145,11 @@ def save_map(slam: "SlamSystem", path: str) -> None:
 def load_map(slam: "SlamSystem", path: str) -> None:
     """Restore a snapshot made by either package into an existing
     SlamSystem of the same configuration. Raises ``ValueError`` on a newer
-    format or other capacities, ``NotImplementedError`` on an inertial
-    snapshot."""
+    format or other capacities."""
     z = np.load(path)
     meta = json.loads(bytes(z["meta_json"]).decode())
     if meta["version"] > FORMAT_VERSION:
         raise ValueError(f"checkpoint version {meta['version']} unsupported")
-    if meta["is_inertial"]:
-        raise NotImplementedError("inertial snapshots are not ported")
     dev = slam.device
     ms = _unpack_map("ms_", z, slam.ms, dev)
     if ms.K != slam.ms.K or ms.N != slam.ms.N or ms.L != slam.ms.L:
@@ -147,6 +168,14 @@ def load_map(slam: "SlamSystem", path: str) -> None:
     slam._kf_lowq_host = list(meta.get("kf_lowq_host", []))
     for name in ("R_cw", "t_cw", "vel_R", "vel_t"):
         setattr(slam, name, torch.from_numpy(np.asarray(z[name])).to(dev))
+    if meta["is_inertial"] and slam.cfg.is_inertial:
+        slam.ikf = _unpack_tuple("ikf_", z, dev)
+        slam.gravity = torch.from_numpy(np.asarray(z["gravity"])).to(dev)
+        slam.frame_vel = torch.from_numpy(np.asarray(z["frame_vel"])).to(dev)
+        slam.imu_initialized = meta["imu_initialized"]
+        slam._last_kf_time = meta["last_kf_time"]
+        slam._last_frame_time = meta["last_frame_time"]
+        slam._imu_buf = []
     lc = slam.loop_closer
     if "lc_bow_words" in z and lc.db_words is not None:
         if tuple(z["lc_bow_words"].shape) == tuple(lc.db_words.shape):
@@ -172,6 +201,10 @@ def load_map(slam: "SlamSystem", path: str) -> None:
         if mp is not None:
             m["merge_prior"] = (np.asarray(mp[0], np.float64).reshape(3, 3), np.asarray(mp[1], np.float64),
                                 float(mp[2]), float(mp[3]))
+        if f"atlas{i}_ikf_bg" in z:
+            m["ikf"] = _unpack_tuple(f"atlas{i}_ikf_", z, dev)
+            m["gravity"] = torch.from_numpy(np.asarray(z[f"atlas{i}_gravity"])).to(dev)
+            m["imu_initialized"] = meta.get(f"atlas{i}_imu_initialized", False)
         m["kf_times"] = list(meta.get(f"atlas{i}_kf_times", []))
         m["kf_lowq"] = list(meta.get(f"atlas{i}_kf_lowq", []))
         if f"atlas{i}_bow_words" in z or f"atlas{i}_bow_db" in z:

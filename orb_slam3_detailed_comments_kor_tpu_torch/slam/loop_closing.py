@@ -217,13 +217,17 @@ class LoopCloser:
                 R_delta, t_delta, cam_params, bf: float, run_gba: bool = True,
                 mode: str = "se3", gravity=None, s_delta=None, ikf=None):
         """CorrectLoop: essential-graph pose optimization + landmark
-        re-anchoring + optional global BA. ``mode`` "se3" (stereo) or
-        "sim3" (monocular); the inertial "4dof" correction is not ported."""
-        if ikf is not None or mode == "4dof":
-            raise NotImplementedError("the inertial loop correction is not ported")
-        sd = torch.ones((), dtype=t_delta.dtype, device=t_delta.device) if s_delta is None else s_delta
-        ms, _, _ = _correct_core(ms, ikf_valid_n, kf_idx, cand, R_delta, t_delta, sd,
-                                 cam_params, bf, run_gba, mode)
+        re-anchoring + optional global BA. ``mode`` "se3" (stereo), "sim3"
+        (monocular) or "4dof" (inertial: yaw and translation about
+        ``gravity``, ``LoopClosing.cc:1239-1245``). With ``ikf`` each
+        keyframe's world velocity turns with its own correction (and loses
+        the sim3 scale), and (ms, ikf) is returned."""
+        dev, dt_ = t_delta.device, t_delta.dtype
+        if gravity is None and mode == "4dof":  # the reference's default, filled on the device
+            gravity = 9.81 * torch.eye(3, dtype=dt_, device=dev)[1]
+        sd = torch.ones((), dtype=dt_, device=dev) if s_delta is None else s_delta
+        ms, dR_w, s_new = _correct_core(ms, ikf_valid_n, kf_idx, cand, R_delta, t_delta, sd,
+                                        cam_params, bf, run_gba, mode, gravity=gravity)
         self.n_loops_closed += 1
         # the closure's ends and delta magnitude (rotation deg, metres)
         tr = torch.diagonal(R_delta, dim1=-2, dim2=-1).sum(-1)
@@ -237,7 +241,12 @@ class LoopCloser:
         self._last_cand = -1
         self._hyp = None
         self._cooldown = 10
-        return ms
+        if ikf is None:
+            return ms
+        # the corrected-Sim3 velocity propagation (LoopClosing.cc:1036-1120):
+        # stale velocities would feed the next VI-BA window a
+        # pre-correction frame
+        return ms, ikf._replace(vel=(dR_w @ ikf.vel[..., None])[..., 0] / s_new[:, None])
 
     # ------------------------------------------------------------------
     def _global_ba(self, ms: msx.MapState, n_kf: int, cam_params, bf: float,
@@ -384,14 +393,14 @@ _COV_EDGE_CAP = 192
 
 
 def _correct_core(ms: msx.MapState, n_kf: int, kf_idx: int, cand: int, R_delta, t_delta, s_delta,
-                  cam_params, bf, run_gba: bool, mode: str = "se3"):
+                  cam_params, bf, run_gba: bool, mode: str = "se3", gravity=None):
     """Essential-graph correction of the whole map: temporal chain,
     the ``_COV_EDGE_CAP`` strongest covisibility edges (ties to the lower
     flat index, as ``jax.lax.top_k``) and the loop edge; keyframe 0, the
     candidate and empty slots held. Landmarks follow their anchor
     keyframe. Returns (ms', dR_w [K,3,3], s_new [K])."""
-    if mode not in ("se3", "sim3"):
-        raise NotImplementedError(f"loop correction mode {mode!r} is not ported")
+    if mode not in ("se3", "sim3", "4dof"):
+        raise ValueError(f"unknown loop correction mode {mode!r}")
     K = ms.K
     dev, dt_ = ms.kf_t_cw.device, ms.kf_t_cw.dtype
     one = torch.ones((), dtype=dt_, device=dev)
@@ -428,6 +437,9 @@ def _correct_core(ms: msx.MapState, n_kf: int, kf_idx: int, cand: int, R_delta, 
         R_new, t_new, s_new = pose_graph.optimize_pose_graph_sim3(R_old, t_old, s_new, edges, fixed, iters=15)
         # fold the per-KF scale into the SE3 pose: [R | t/s]
         ms = ms._replace(kf_R_cw=R_new, kf_t_cw=t_new / s_new[:, None])
+    elif mode == "4dof":
+        R_new, t_new = pose_graph.optimize_pose_graph_4dof(R_old, t_old, gravity, edges, fixed, iters=15)
+        ms = ms._replace(kf_R_cw=R_new, kf_t_cw=t_new)
     else:
         R_new, t_new = pose_graph.optimize_pose_graph_se3(R_old, t_old, edges, fixed, iters=15)
         ms = ms._replace(kf_R_cw=R_new, kf_t_cw=t_new)

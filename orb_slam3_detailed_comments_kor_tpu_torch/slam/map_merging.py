@@ -8,8 +8,8 @@ Port of ``orb_slam3_detailed_comments_kor_tpu/slam/map_merging.py``
 active (younger) map is moved rigidly into the shelved map's frame, its
 keyframe and landmark blocks are scattered into the shelved map's free
 slots with an index remap, duplicate landmarks are fused, and an SE(3)
-pose graph plus a welding-window BA spread the seam error. The inertial
-weld (``MergeLocal2``) is not ported and raises.
+pose graph plus a welding-window BA spread the seam error; inertial maps
+then weld their inertial chains (``MergeLocal2``).
 
 Host reads: the candidate's BoW scores (one per shelf), the PnP and the
 tracking-refinement inlier counts of a verification, one read of the gate's
@@ -300,7 +300,7 @@ def merge_into_shelved(slam, shelf_idx: int, kf_cur: int, kf_old: int, R_d, t_d)
         slam.loop_closer = lc_old
 
     if slam.cfg.is_inertial and "ikf" in shelf:
-        raise NotImplementedError("the inertial merge weld (MergeLocal2) is not ported")
+        _weld_inertial(slam, shelf, kf_dst, R_d)
 
     # re-anchor the trajectory records: relative records survive the rigid
     # move (T_f T_kf⁻¹ is D-invariant); the young map's keyframe indices
@@ -319,6 +319,30 @@ def merge_into_shelved(slam, shelf_idx: int, kf_cur: int, kf_old: int, R_d, t_d)
     slam.trajectory = rewritten
     del slam.atlas_maps[shelf_idx]
     return True
+
+
+def _weld_inertial(slam, shelf, kf_dst, R_d) -> None:
+    """The inertial state weld (MergeLocal2, ``LoopClosing.cc:1837``): the
+    old map is the base and its gravity frame wins; the young map's
+    velocities are world vectors and turn with the map delta (v' = R_d v);
+    its windows, biases and validity land at its keyframes' new slots
+    (slots past the capacity are dropped). Then, once the IMU is
+    initialized, a bounded whole-map VI BA (MergeInertialBA,
+    ``Optimizer.cc:6029``) restores IMU consistency across the seam."""
+    from orb_slam3_detailed_comments_kor_tpu_torch.slam import inertial
+
+    ikf_old, ikf_cur = shelf["ikf"], slam.ikf
+    at = torch.clamp(kf_dst, max=ikf_old.vel.shape[0]).to(torch.int64)
+    cur = ikf_cur._replace(vel=ikf_cur.vel @ R_d.T)
+    slam.ikf = inertial.InertialKF(*(msx.scatter_drop(o, at, c) for o, c in zip(ikf_old, cur)))
+    if shelf.get("imu_initialized", False):
+        slam.gravity = shelf["gravity"]
+    slam.imu_initialized = shelf.get("imu_initialized", False) or slam.imu_initialized
+    if slam.imu_initialized:
+        slam.ms, slam.ikf, _ = inertial.full_inertial_ba(
+            slam.ms, slam.ikf, slam.gravity, slam.cam_params, slam.R_cb, slam.t_cb,
+            slam.cfg.camera.bf, iters=2, cam_model=slam.cam_model,
+        )
 
 
 def try_merge(slam) -> bool:

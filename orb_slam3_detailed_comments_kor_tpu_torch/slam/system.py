@@ -25,9 +25,13 @@ slices, one ahead of each frame's dispatch (``_service_background``), so a
 frame never waits behind a whole solve.
 
 Also here: the Atlas merge (``map_merging.try_merge``, queued per keyframe
-while shelved maps exist), localization mode and map checkpoints
-(``save_map``/``load_map``, ``slam/checkpoint.py``). Not in this slice:
-the inertial, monocular, RGB-D and stereo-fisheye paths.
+while shelved maps exist), localization mode, map checkpoints
+(``save_map``/``load_map``, ``slam/checkpoint.py``) and the stereo-inertial
+path (``track_stereo_inertial``): per-frame IMU preintegration and
+prediction, the per-frame VI state optimization (``optim/vio.py``),
+inertial keyframes, IMU initialization, VI local BA, the inertial global
+BA and the 4-DoF loop correction. Not here: the monocular(-inertial),
+RGB-D and stereo-fisheye paths.
 """
 
 from __future__ import annotations
@@ -41,10 +45,11 @@ import torch
 from orb_slam3_detailed_comments_kor_tpu_torch.config import SLAMConfig, SensorType
 from orb_slam3_detailed_comments_kor_tpu_torch.models import camera as cam_mod
 from orb_slam3_detailed_comments_kor_tpu_torch.models import vocabulary as voc
+from orb_slam3_detailed_comments_kor_tpu_torch.ops import imu as imu_ops
 from orb_slam3_detailed_comments_kor_tpu_torch.ops import matching, ransac
 from orb_slam3_detailed_comments_kor_tpu_torch.ops import orb as orb_ops
-from orb_slam3_detailed_comments_kor_tpu_torch.optim import ba
-from orb_slam3_detailed_comments_kor_tpu_torch.slam import checkpoint, frontend
+from orb_slam3_detailed_comments_kor_tpu_torch.optim import ba, vio
+from orb_slam3_detailed_comments_kor_tpu_torch.slam import checkpoint, frontend, inertial
 from orb_slam3_detailed_comments_kor_tpu_torch.slam import map_merging
 from orb_slam3_detailed_comments_kor_tpu_torch.slam import map_state as msx
 from orb_slam3_detailed_comments_kor_tpu_torch.slam import tracking
@@ -145,7 +150,8 @@ def reloc_candidate_groups(
 
 
 class SlamSystem:
-    """Stereo SLAM system over device-resident map state.
+    """Stereo and stereo-inertial SLAM system over device-resident map
+    state.
 
     ``device`` is where the map, the vocabulary and every per-frame tensor
     live: the card unless the caller names another. ``enable_loop_closing``
@@ -158,11 +164,11 @@ class SlamSystem:
 
     def __init__(self, config: SLAMConfig, device="cuda"):
         cam = config.camera
-        if (config.is_inertial or config.sensor != SensorType.STEREO
+        if (config.sensor not in (SensorType.STEREO, SensorType.IMU_STEREO)
                 or cam.model != "pinhole" or cam.right_intrinsics is not None):
             raise NotImplementedError(
-                "only the stereo pinhole path is ported (no inertial, mono, "
-                "RGB-D or stereo-fisheye configurations)"
+                "only the stereo and stereo-inertial pinhole paths are ported "
+                "(no mono, mono-inertial, RGB-D or stereo-fisheye configurations)"
             )
         self.cfg = config
         self.device = torch.device(device)
@@ -231,6 +237,38 @@ class SlamSystem:
         # localization mode, and its last tracked (frame, (R_cw, t_cw))
         self.localization_only = False
         self._loc_prev = None
+        if config.is_inertial:
+            self._init_inertial()
+
+    def _init_inertial(self) -> None:
+        """The inertial state (IMU_STEREO): per-keyframe VI block, the
+        camera-from-body extrinsic, gravity, the IMU sample buffer, the
+        per-frame preintegration segments and the VIO prior chain."""
+        dev = self.device
+        self.ikf = inertial.empty_inertial(self.cfg.capacity.max_keyframes, device=dev)
+        tbc = torch.from_numpy(np.asarray(self.cfg.imu.tbc, np.float32).reshape(4, 4)).to(dev)
+        # the config stores T_bc (camera to body); the optimizers take T_cb
+        self.R_cb, self.t_cb = lie.se3_inverse(tbc[:3, :3], tbc[:3, 3])
+        self.imu_initialized = False
+        self.gravity = torch.tensor([0.0, 9.81, 0.0]).to(dev)  # re-estimated at init
+        self._imu_buf: List[tuple] = []
+        self._last_frame_time = None
+        self._last_kf_time = None
+        self.frame_vel = torch.zeros(3, device=dev)
+        # incremental preintegration: one segment per frame plus a running
+        # composition since the last keyframe
+        self._pre_segments: List[tuple] = []
+        self._pre_run = None
+        self._seg_t = None
+        # the per-frame VI estimator: the marginal prior carried between
+        # frames and the last optimized frame state
+        self._vio_prior = None
+        self._vio_state = None
+        self._vio_prior_t = None
+        self._map_poses_dirty = True
+        self._suppress_imu_pred = 0
+        self._init_kf_count = 0
+        self._gba_sweep_pos = None
 
     def _new_loop_closer(self) -> LoopCloser:
         cap = self.cfg.capacity
@@ -316,17 +354,22 @@ class SlamSystem:
         self.state = TrackingState.OK
         self.inliers_at_last_kf = n_depth
 
-    def _track(self, img_l, img_r, t: float):
+    def _track(self, img_l, img_r, t: float, override_pred=None):
         """Deferred-decision tracking: the device step for each frame is
         dispatched immediately; the host-side branching (lost / keyframe
         decision) is resolved in batches of ``decision_batch`` frames with
         one double-buffered device-to-host read, so decisions lag the
-        dispatch by up to 2 x ``decision_batch`` frames."""
+        dispatch by up to 2 x ``decision_batch`` frames. ``override_pred``:
+        an IMU-predicted (R_cw, t_cw), fed as the last pose with no
+        velocity, so the step's search starts there."""
         cam = self.cfg.camera
         # the prediction's pose and velocity flag are taken before the
         # frame's background slice, as the reference takes them: a loop
         # correction in that slice re-bases the live pose for the NEXT frame
-        R_last, t_last, has_vel = self.R_cw, self.t_cw, self._vel_flag[self.has_velocity]
+        if override_pred is not None:
+            (R_last, t_last), has_vel = override_pred, self._vel_flag[False]
+        else:
+            R_last, t_last, has_vel = self.R_cw, self.t_cw, self._vel_flag[self.has_velocity]
         self._service_background()
         with self.timer.span("track/dispatch"):
             out = tracking.full_frame_step(
@@ -453,7 +496,10 @@ class SlamSystem:
             self.R_cw, self.t_cw = tr.R_cw, tr.t_cw
             self._cur_track_inliers = n_inliers
             with self.timer.span("mapping/insert_kf"):
-                self._insert_keyframe(frame, t, lm_feat=tr.lm_feat)
+                if self.cfg.is_inertial and self.n_kf > 0:
+                    self._insert_keyframe_inertial(frame, t, lm_feat=tr.lm_feat)
+                else:
+                    self._insert_keyframe(frame, t, lm_feat=tr.lm_feat)
             self.R_cw, self.t_cw = lie.se3_compose_j(R_rel, t_rel, self.R_cw, self.t_cw)
             self.inliers_at_last_kf = n_inliers
             if dispatch_idx is not None:
@@ -509,8 +555,12 @@ class SlamSystem:
             self.state = TrackingState.OK
             return
         self.n_lost_frames += 1
-        # without an IMU the prediction decays fast: ~1 s of attempts
+        # with an initialized IMU the tracker coasts on dead-reckoned
+        # predictions for time_recently_lost seconds (Tracking.cc:1904-1917);
+        # without one the prediction decays fast: ~1 s of attempts
         budget = 20
+        if self.cfg.is_inertial and self.imu_initialized:
+            budget = max(20, int(round(self.cfg.tracking.time_recently_lost * max(self.cfg.camera.fps, 1.0))))
         if self.n_lost_frames < budget:
             self.state = TrackingState.RECENTLY_LOST
             self.has_velocity = False
@@ -536,7 +586,7 @@ class SlamSystem:
             if kind == "bow_insert":
                 fn()
         pose = torch.cat([self.R_cw.reshape(-1), self.t_cw]).cpu().numpy()
-        self.atlas_maps.append({
+        self.atlas_maps.append(self._inertial_shelf({
             "ms": self.ms,
             "n_kf": self.n_kf,
             "loop_closer": self.loop_closer,
@@ -548,8 +598,16 @@ class SlamSystem:
             # blind before it), numpy float32 as the reference keeps them
             "merge_prior": (pose[:9].reshape(3, 3), pose[9:], float(self._last_track_time or 0.0),
                             float(self.n_lost_frames / max(self.cfg.camera.fps, 1.0))),
-        })
+        }))
         self._reset_active_map()
+
+    def _inertial_shelf(self, shelf: dict) -> dict:
+        """Inertial maps keep their VI state on the shelf, so that a later
+        merge (MergeLocal2) can weld the inertial chains and adopt the old
+        map's gravity frame."""
+        if self.cfg.is_inertial:
+            shelf.update(ikf=self.ikf, gravity=self.gravity, imu_initialized=self.imu_initialized)
+        return shelf
 
     def _reset_active_map(self) -> None:
         cap = self.cfg.capacity
@@ -571,6 +629,12 @@ class SlamSystem:
         self._gba_prev_cost = None
         self._gen_counter += 1
         self._map_gen = self._gen_counter
+        if self.cfg.is_inertial:
+            self.ikf = inertial.empty_inertial(cap.max_keyframes, device=self.device)
+            self.imu_initialized = False
+            self._imu_buf.clear()
+            self._last_kf_time = None
+            self._reset_pre_segments()
 
     def _relocalize(self, frame: frontend.Frame) -> bool:
         """BoW candidates + PnP RANSAC (Tracking::Relocalization), in the
@@ -657,7 +721,7 @@ class SlamSystem:
             if kind == "bow_insert":
                 fn()
         if self.n_kf >= 5:
-            self.atlas_maps.append({
+            self.atlas_maps.append(self._inertial_shelf({
                 "ms": self.ms,
                 "n_kf": self.n_kf,
                 "loop_closer": self.loop_closer,
@@ -665,7 +729,7 @@ class SlamSystem:
                 "gen": self._map_gen,
                 "kf_times": list(self._host_kf_times()),
                 "kf_lowq": list(self._kf_lowq_host),
-            })
+            }))
         self.ms = shelf["ms"]
         self.n_kf = shelf["n_kf"]
         self._kf_times_host = list(shelf.get("kf_times") or self.ms.kf_time[: self.n_kf].cpu().numpy())
@@ -679,6 +743,17 @@ class SlamSystem:
         self.frames_since_kf = 0
         self._last_kf_dispatch_idx = self._dispatch_idx
         self.n_lost_frames = 0
+        if self.cfg.is_inertial and "ikf" in shelf:
+            self.ikf = shelf["ikf"]
+            self.gravity = shelf["gravity"]
+            self.imu_initialized = shelf["imu_initialized"]
+            self._imu_buf.clear()
+            self._last_kf_time = self._last_track_time
+            self._reset_pre_segments()
+            # the shelved map's last keyframe velocity is stale: the visual
+            # motion model re-seeds tracking for two frames before the IMU
+            # prediction is trusted again
+            self._suppress_imu_pred = 2
 
     # ------------------------------------------------------------------
     # Background mapping FIFO: every per-keyframe job (duplicate fusion,
@@ -691,6 +766,17 @@ class SlamSystem:
     def _bg_drop(self, kinds) -> None:
         self._bg_queue = [(k, f) for (k, f) in self._bg_queue if k not in kinds]
 
+    #: slice kinds that rewrite keyframe poses or velocities: servicing one
+    #: restarts the per-frame VIO prior chain (``mbMapUpdated``,
+    #: ``Tracking.cc:1806-1815``)
+    _POSE_REWRITE_KINDS = frozenset(("local_ba_chunk", "cull_kf", "loop", "try_merge", "init_fiba"))
+
+    def _run_slice(self, kind: str, fn) -> None:
+        with self.timer.span(f"mapping/{kind}"):
+            fn()
+        if kind in self._POSE_REWRITE_KINDS:
+            self._map_poses_dirty = True
+
     def _schedule_local_ba(self, kf_idx: int, chunks: int = 2) -> None:
         """Queue the per-KF local BA as bounded slices serviced one per
         subsequent frame dispatch. A newer keyframe aborts the previous
@@ -702,6 +788,13 @@ class SlamSystem:
 
     def _lba_slice(self, kf_idx: int) -> None:
         cam = self.cfg.camera
+        if self.cfg.is_inertial and self.imu_initialized:
+            self.ms, self.ikf, _ = inertial.local_vi_ba_step(
+                self.ms, self.ikf, kf_idx, self.gravity, self.cam_params, self.R_cb, self.t_cb,
+                cam.bf, window=10, lm_cap=self.cfg.capacity.max_local_landmarks,
+                iters=2, cam_model=self.cam_model,
+            )
+            return
         self.ms = tracking.local_ba_step(
             self.ms, kf_idx, self.cam_params,
             cam.bf, window=min(8, self.cfg.capacity.max_local_kfs),
@@ -715,31 +808,57 @@ class SlamSystem:
 
     def _bg_backpressure(self) -> None:
         while len(self._bg_queue) > self._BG_QUEUE_MAX:
-            kind, fn = self._bg_queue.pop(0)
-            with self.timer.span(f"mapping/{kind}"):
-                fn()
+            self._run_slice(*self._bg_queue.pop(0))
 
     def _service_background(self) -> None:
         """One background slice per frame dispatch: queued per-KF mapping
         jobs first, then any pending GBA slice."""
         if self._bg_queue:
-            kind, fn = self._bg_queue.pop(0)
-            with self.timer.span(f"mapping/{kind}"):
-                fn()
+            self._run_slice(*self._bg_queue.pop(0))
         else:
             self._service_gba()
 
     def _service_gba(self) -> None:
         """Dispatch one pending GBA slice (2 LM iterations over the whole
-        map) and adapt the remaining budget to its cost."""
+        map) and adapt the remaining budget to its cost. Inertial maps take
+        FullInertialBA slices (``LoopClosing.cc:2287-2289``): up to 128
+        keyframe slots a sweep of the init-FIBA window program (window
+        slices; their costs are local and feed no budget), above that the
+        whole-map PCG solve. (The reference's multi-device branch,
+        ``parallel/dist_vi_ba``, is not ported.)"""
         if self._gba_chunks_left > 0:
             with self.timer.span("mapping/gba_chunk"):
-                self.ms, cost = self.loop_closer.gba_chunk(
-                    self.ms, self.cam_params, self.cfg.camera.bf, cam_model=self.cam_model,
-                )
+                if self.cfg.is_inertial and self.imu_initialized:
+                    cost = self._inertial_gba_slice()
+                else:
+                    self.ms, cost = self.loop_closer.gba_chunk(
+                        self.ms, self.cam_params, self.cfg.camera.bf, cam_model=self.cam_model,
+                    )
             self._gba_chunks_left -= 1
             self._gba_chunks_run += 1
+            if self.cfg.is_inertial:
+                self._map_poses_dirty = True
             self._adapt_gba_budget(cost)
+
+    def _inertial_gba_slice(self):
+        cam = self.cfg.camera
+        if self.ms.K <= 128:
+            W = self._INIT_FIBA_WINDOW
+            n1 = self.n_kf - 1
+            cur = self._gba_sweep_pos
+            cur = min(W - 1, n1) if cur is None or cur >= n1 else min(cur + W, n1)
+            self._gba_sweep_pos = cur
+            self.ms, self.ikf, _ = inertial.local_vi_ba_step(
+                self.ms, self.ikf, cur, self.gravity, self.cam_params, self.R_cb, self.t_cb,
+                cam.bf, window=W, lm_cap=self.cfg.capacity.max_local_landmarks,
+                iters=2, cam_model=self.cam_model,
+            )
+            return None
+        self.ms, self.ikf, cost = inertial.full_inertial_ba(
+            self.ms, self.ikf, self.gravity, self.cam_params, self.R_cb, self.t_cb, cam.bf,
+            iters=2, cam_model=self.cam_model,
+        )
+        return cost
 
     # GBA convergence control: each chunk returns its final chi² sum;
     # converged -> cancel the remaining chunks, still descending on the last
@@ -771,20 +890,28 @@ class SlamSystem:
               and rel > 0.02):
             self._gba_chunks_left = 2  # still descending: extend the solve
 
-    def _track_with_frame(self, frame: frontend.Frame, t: float) -> None:
+    def _track_with_frame(self, frame: frontend.Frame, t: float, override_pred=None) -> None:
         """Unfused, synchronous track path for pre-extracted frames (the
-        replay of stale decisions after a map switch)."""
+        replay of stale decisions after a map switch). With an IMU-predicted
+        ``override_pred`` (R_cw, t_cw) the prediction also enters the pose
+        solve as a prior (``Optimizer.cc:6697``)."""
         cam = self.cfg.camera
         self._service_background()
         if self.has_velocity:
             R_pred, t_pred = lie.se3_compose(self.vel_R, self.vel_t, self.R_cw, self.t_cw)
         else:
             R_pred, t_pred = self.R_cw, self.t_cw
+        prior = None
+        if override_pred is not None:
+            R_pred, t_pred = override_pred
+            if self.cfg.is_inertial:
+                tc = self.cfg.tracking
+                prior = (R_pred, t_pred, 1.0 / tc.imu_prior_sigma_rot ** 2, 1.0 / tc.imu_prior_sigma_trans ** 2)
         tr = tracking.track_frame(
             self.ms, frame, R_pred, t_pred, self.cam_params, cam.bf,
             w=cam.width, h=cam.height,
             scale=self.cfg.orb.scale_factor, n_levels=self.cfg.orb.n_levels,
-            cam_model=self.cam_model, far_dist=self.cfg.camera.th_far_points,
+            prior=prior, cam_model=self.cam_model, far_dist=self.cfg.camera.th_far_points,
         )
         n_inliers = int(tr.n_inliers)
         if n_inliers < self.cfg.tracking.min_inliers_local_map:
@@ -800,8 +927,321 @@ class SlamSystem:
         self.frames_since_kf += 1
         if self._need_new_keyframe(frame, n_inliers):
             self._cur_track_inliers = n_inliers
-            self._insert_keyframe(frame, t, lm_feat=tr.lm_feat)
+            if self.cfg.is_inertial and self.n_kf > 0:
+                self._insert_keyframe_inertial(frame, t, lm_feat=tr.lm_feat)
+            else:
+                self._insert_keyframe(frame, t, lm_feat=tr.lm_feat)
             self.inliers_at_last_kf = n_inliers
+
+    # ------------------------------------------------------------------
+    # Stereo-inertial mode (System::TrackStereo with IMU measurements)
+    # ------------------------------------------------------------------
+    def grab_imu(self, t: float, acc, gyro) -> None:
+        """Queue one IMU sample (``Tracking::GrabImuData``, ``Tracking.cc:1445``)."""
+        self._imu_buf.append((t, np.asarray(acc), np.asarray(gyro)))
+
+    def _upload_batch(self, samples, start, cap: int) -> imu_ops.ImuBatch:
+        """One packed host-to-device copy of a sample window ([cap, 8]: acc,
+        gyro, dt, valid), from pinned memory without waiting on the stream
+        when the system lives on the card."""
+        pk = np.zeros((cap, 8), np.float32)
+        prev = start
+        for i, (ts, a, g) in enumerate(samples[:cap]):
+            pk[i, 0:3] = a
+            pk[i, 3:6] = g
+            pk[i, 6] = max(ts - prev, 0.0) if prev is not None else 0.0
+            pk[i, 7] = 1.0
+            prev = ts
+        host = torch.from_numpy(pk)
+        if self.device.type == "cuda":
+            host = host.pin_memory()
+        pkd = host.to(self.device, non_blocking=True)
+        return imu_ops.ImuBatch(acc=pkd[:, 0:3], gyro=pkd[:, 3:6], dt=pkd[:, 6], valid=pkd[:, 7] > 0.5)
+
+    def _imu_sigmas(self):
+        imu_cfg = self.cfg.imu
+        return (float(imu_cfg.noise_gyro * np.sqrt(imu_cfg.frequency)),
+                float(imu_cfg.noise_acc * np.sqrt(imu_cfg.frequency)))
+
+    def _preintegrate_since_last_kf(self, t_end: float = None):
+        """Integrate the queued samples after the last keyframe (up to
+        ``t_end``) at the current bias estimate."""
+        cap = self.cfg.capacity.max_imu_per_frame * max(self.cfg.tracking.max_frames_between_kf, 1)
+        buf = self._imu_buf
+        if t_end is not None:
+            buf = [s for s in buf if s[0] <= t_end]
+        if self._last_kf_time is not None:
+            # samples at or before the window start belong to earlier windows
+            buf = [s for s in buf if s[0] > self._last_kf_time]
+        batch = self._upload_batch(buf, self._last_kf_time, cap)
+        kf_idx = max(self.n_kf - 1, 0)
+        return imu_ops.integrate(batch, self.ikf.bg[kf_idx], self.ikf.ba[kf_idx], *self._imu_sigmas())
+
+    def _reset_pre_segments(self) -> None:
+        self._pre_segments = []
+        self._pre_run = None
+        self._seg_t = self._last_kf_time
+        # the VIO prior chain is anchored to the dropped window
+        self._vio_prior = None
+        self._vio_state = None
+        self._map_poses_dirty = True
+
+    def _frame_sample_batch(self, t: float):
+        """This frame's IMU samples as a padded ImuBatch, or None before the
+        first keyframe window opens."""
+        if self._last_kf_time is None:
+            return None
+        if self._seg_t is None:
+            self._seg_t = self._last_kf_time
+        start = self._seg_t
+        buf = [s for s in self._imu_buf if start < s[0] <= t]
+        return self._upload_batch(buf, start, self.cfg.capacity.max_imu_per_frame)
+
+    def _integrate_new_samples(self, t: float) -> None:
+        """Integrate this frame's samples into one cached segment and fold
+        it into the running window (``IntegrateNewMeasurement``)."""
+        batch = self._frame_sample_batch(t)
+        if batch is None:
+            return
+        kf_idx = max(self.n_kf - 1, 0)
+        pre = imu_ops.integrate(batch, self.ikf.bg[kf_idx], self.ikf.ba[kf_idx], *self._imu_sigmas())
+        self._pre_segments.append((t, pre))
+        self._pre_run = pre if self._pre_run is None else imu_ops.compose(self._pre_run, pre)
+        self._seg_t = t
+
+    def _advance_imu(self, t: float):
+        """The per-frame IMU pipeline (``inertial.advance_imu``): integrate,
+        compose, predict. Returns (R_pred, t_pred, v_pred) or None (before
+        init, suppressed or no window)."""
+        want_pred = self.imu_initialized and self._suppress_imu_pred <= 0 and self._last_kf_time is not None
+        if not want_pred:
+            self._integrate_new_samples(t)
+            return self._imu_predicted_pose()
+        batch = self._frame_sample_batch(t)
+        if batch is None:
+            return self._imu_predicted_pose()
+        kf_idx = max(self.n_kf - 1, 0)
+        bg, ba_ = self.ikf.bg[kf_idx], self.ikf.ba[kf_idx]
+        pre_run = (self._pre_run if self._pre_run is not None
+                   else imu_ops.identity_preintegrated(self.device)._replace(bias_g=bg, bias_a=ba_))
+        with self.timer.span("track/imu"):
+            seg, run, R_pred, t_pred, v2 = inertial.advance_imu(
+                batch, bg, ba_, *self._imu_sigmas(), pre_run, self.ms.kf_R_cw[kf_idx],
+                self.ms.kf_t_cw[kf_idx], self.ikf.vel[kf_idx], self.gravity, self.R_cb, self.t_cb,
+            )
+        self._pre_segments.append((t, seg))
+        self._pre_run = run
+        self._seg_t = t
+        return R_pred, t_pred, v2
+
+    def _window_pre_consume(self, t_end: float):
+        """Compose the cached segments covering (last_kf_time, t_end] and
+        drop them (keyframe insertion consumes its window); the rest re-form
+        the running window. Re-integrates the raw buffer when the cache does
+        not cover the span."""
+        eps = 1e-9
+        consumed = [p for (ts, p) in self._pre_segments if ts <= t_end + eps]
+        rest = [(ts, p) for (ts, p) in self._pre_segments if ts > t_end + eps]
+        if not consumed or self._last_kf_time is None:
+            self._reset_pre_segments()
+            return self._preintegrate_since_last_kf(t_end=t_end)
+        total = consumed[0]
+        for p in consumed[1:]:
+            total = imu_ops.compose(total, p)
+        self._pre_segments = rest
+        self._pre_run = None
+        if rest:
+            run = rest[0][1]
+            for _, p in rest[1:]:
+                run = imu_ops.compose(run, p)
+            self._pre_run = run
+        self._seg_t = rest[-1][0] if rest else t_end
+        return total
+
+    def track_stereo_inertial(self, img_l, img_r, t: float, imu_samples=None) -> int:
+        """Feed a rectified stereo pair and the IMU samples since the
+        previous frame (an iterable of (t, acc[3], gyro[3])). Returns the
+        tracking state."""
+        if not self.cfg.is_inertial:
+            raise ValueError("track_stereo_inertial needs an IMU_STEREO configuration")
+        for smp in imu_samples or []:
+            self.grab_imu(*smp)
+        self._check_timestamp_jump(t)
+        if self.state == TrackingState.NOT_INITIALIZED:
+            st = self.track_stereo(img_l, img_r, t)
+            if self.state == TrackingState.OK:  # the first keyframe was made
+                self._last_kf_time = t
+                self._imu_buf.clear()
+                self._reset_pre_segments()
+            self._last_frame_time = t
+            return st
+        pred = self._advance_imu(t)
+        img_l = torch.as_tensor(img_l, dtype=torch.float32, device=self.device)
+        img_r = torch.as_tensor(img_r, dtype=torch.float32, device=self.device)
+        if pred is not None:
+            R_pred, t_pred, v2 = pred
+            out = self._track(img_l, img_r, t, override_pred=(R_pred, t_pred))
+            self.frame_vel = v2
+            self._vio_refine(out, t)
+        else:
+            self._track(img_l, img_r, t)
+        self.n_frames += 1
+        self._last_frame_time = t
+        self._record_frame(t)
+        return self.state
+
+    def track_mono_inertial(self, img, t: float, imu_samples=None) -> int:
+        raise NotImplementedError("the monocular-inertial path (two-view initialization, "
+                                  "map_state.apply_scale) is not ported")
+
+    def _imu_predicted_pose(self):
+        """PredictStateIMU (``Tracking.cc:1561``): the camera pose
+        dead-reckoned from the last keyframe's VI state through the queued
+        window. Returns (R_pred, t_pred, velocity) or None before init."""
+        if not self.imu_initialized:
+            return None
+        if self._suppress_imu_pred > 0:
+            self._suppress_imu_pred -= 1
+            return None
+        if self._last_kf_time is None:
+            return None
+        pre = self._pre_run if self._pre_run is not None else self._preintegrate_since_last_kf()
+        kf_idx = self.n_kf - 1
+        return inertial.predict_from_pre(
+            pre, self.ms.kf_R_cw[kf_idx], self.ms.kf_t_cw[kf_idx], self.ikf.vel[kf_idx],
+            self.ikf.bg[kf_idx], self.ikf.ba[kf_idx], self.gravity, self.R_cb, self.t_cb,
+        )
+
+    def _vio_refine(self, out, t: float) -> None:
+        """The per-frame VI state optimization with its marginal prior
+        chain (``PoseInertialOptimizationLastKeyFrame``/``LastFrame``),
+        chained on the frame step without a host read. After a keyframe
+        insertion or a slice that rewrote map poses the chain restarts from
+        the last keyframe's VI state with the window since it; otherwise it
+        continues frame to frame with the frame's own segment."""
+        if not self.cfg.tracking.use_frame_vio or out is None or not self.imu_initialized:
+            return
+        ms, frame, tr = out[0], out[1], out[2]
+        seg = None
+        if self._pre_segments and abs(self._pre_segments[-1][0] - t) < 1e-9:
+            seg = self._pre_segments[-1][1]
+        if (self._vio_prior is None or self._map_poses_dirty or seg is None
+                # the chain prior must belong to the immediately previous frame
+                or self._last_frame_time != self._vio_prior_t):
+            # LastKeyFrame variant: the keyframe's current state, the window
+            pre = self._pre_run
+            if pre is None:
+                return
+            kf = self.n_kf - 1
+            prior = vio.kf_prior(self.ms.kf_R_cw[kf], self.ms.kf_t_cw[kf], self.ikf.vel[kf],
+                                 self.ikf.bg[kf], self.ikf.ba[kf], self.R_cb, self.t_cb)
+            self._map_poses_dirty = False
+        else:
+            # LastFrame variant: the marginal prior chain and this segment
+            prior, pre = self._vio_prior, seg
+        with self.timer.span("track/vio"):
+            R_cw, t_cw, cur, nxt, _ = vio.vio_frame_step(
+                ms.lm_pos, tr.lm_feat, tr.lm_inlier, frame.xy, frame.u_right, frame.level, None,
+                tr.R_cw, tr.t_cw, prior, pre, self.cam_params, self.R_cb, self.t_cb, self.gravity,
+                None, bf=self.cfg.camera.bf, scale=self.cfg.orb.scale_factor, cam_model=self.cam_model,
+                min_inliers=self.cfg.tracking.min_inliers_local_map,
+            )
+        self.R_cw, self.t_cw = R_cw, t_cw
+        self.frame_vel = cur.v
+        self._vio_state = cur
+        self._vio_prior = nxt
+        self._vio_prior_t = t
+        # the queued decision entry carries the refined pose, so that a
+        # keyframe decided from it is inserted there (in degraded states the
+        # entry was already consumed)
+        q = self._pending_decisions
+        if q and q[-1][0] is frame:
+            f, tr0, tq, di, gen = q[-1]
+            q[-1] = (f, tr0._replace(R_cw=R_cw, t_cw=t_cw), tq, di, gen)
+
+    def _insert_keyframe_inertial(self, frame, t: float, lm_feat) -> None:
+        """Keyframe insertion with its preintegration window, then IMU
+        initialization (pre-init: the visual local BA inline) or the VI
+        local-BA slices, the VIBA1/VIBA2 re-initializations and loop
+        detection."""
+        pre = self._window_pre_consume(t)
+        kf_idx = self.n_kf  # the slot the keyframe will get
+        self._insert_keyframe_visual_only(frame, t, lm_feat)
+        # velocity: the prediction once initialized, else zero
+        vel = self.frame_vel if self.imu_initialized else torch.zeros(3, device=self.device)
+        self.ikf = inertial.store_preintegration(self.ikf, kf_idx, pre, vel)
+        # carry the bias forward: the per-frame VIO estimate when fresh (the
+        # keyframe inherits the frame's bias, Tracking.cc:3275), else the
+        # previous keyframe's
+        if kf_idx > 0:
+            vs = self._vio_state
+            fresh = self.imu_initialized and vs is not None
+            self.ikf = self.ikf._replace(
+                bg=inertial._set_row(self.ikf.bg, kf_idx, vs.bg if fresh else self.ikf.bg[kf_idx - 1]),
+                ba=inertial._set_row(self.ikf.ba, kf_idx, vs.ba if fresh else self.ikf.ba[kf_idx - 1]),
+            )
+        # the VIO chain restarts from this keyframe
+        self._map_poses_dirty = True
+        # samples newer than this keyframe belong to the next window
+        self._imu_buf = [smp for smp in self._imu_buf if smp[0] > t]
+        self._last_kf_time = t
+
+        cam = self.cfg.camera
+        if self.n_kf >= 3:
+            self._bg_push("fuse", functools.partial(self._fuse_new_duplicates, kf_idx))
+        if not self.imu_initialized:
+            kt = self._host_kf_times()
+            span = float(kt[self.n_kf - 1] - kt[0])
+            if self.n_kf >= 8 and span >= 1.0:
+                with self.timer.span("mapping/imu_init"):
+                    self.ikf, self.gravity, _ = inertial.initialize_imu(
+                        self.ms, self.ikf, self.n_kf, self.gravity, self.R_cb, self.t_cb)
+                self.imu_initialized = True
+                self._init_kf_count = self.n_kf
+                # bFIBA: whole-map VI BA with bias priors right after init
+                # (LocalMapping.cc:1712-1720), as three background slices
+                for _ in range(3):
+                    self._bg_push("init_fiba", self._init_fiba_apply)
+            elif self.n_kf >= 2:
+                # before IMU init the visual local BA runs inline, to its end
+                self.ms = tracking.local_ba_step(
+                    self.ms, self.n_kf - 1, self.cam_params, cam.bf,
+                    window=min(8, self.cfg.capacity.max_local_kfs),
+                    lm_cap=self.cfg.capacity.max_local_landmarks, cam_model=self.cam_model,
+                )
+                self.ms = tracking.cull_landmarks(self.ms)
+        else:
+            # VI local BA and landmark culling as background slices
+            self._schedule_local_ba(self.n_kf - 1)
+            self._bg_push("cull_lm", self._cull_landmarks_slice)
+            # VIBA1/VIBA2 (LocalMapping.cc:238-295): re-estimate gravity,
+            # biases and velocities once more map and motion accumulated
+            if self.n_kf in (self._init_kf_count + 6, self._init_kf_count + 14):
+                with self.timer.span("mapping/imu_init"):
+                    self.ikf, self.gravity, _ = inertial.initialize_imu(
+                        self.ms, self.ikf, self.n_kf, self.gravity, self.R_cb, self.t_cb)
+            self._bg_push("loop", self._maybe_close_loop)
+        # the Atlas merge across shelved maps (MergeLocal2 for inertial maps,
+        # LoopClosing.cc:1837), whether or not this map's IMU is initialized
+        if self.atlas_maps and self.enable_loop_closing:
+            self._bg_drop(("try_merge",))
+            self._bg_push("try_merge", functools.partial(map_merging.try_merge, self))
+        self._bg_backpressure()
+
+    #: the window of one dense-Schur slice of the post-init FullInertialBA
+    #: (bFIBA), and of the inertial GBA sweep
+    _INIT_FIBA_WINDOW = 16
+
+    def _init_fiba_slice(self):
+        return inertial.local_vi_ba_step(
+            self.ms, self.ikf, self.n_kf - 1, self.gravity, self.cam_params, self.R_cb, self.t_cb,
+            self.cfg.camera.bf, window=self._INIT_FIBA_WINDOW,
+            lm_cap=self.cfg.capacity.max_local_landmarks, iters=2, cam_model=self.cam_model,
+            prior_bg_info=1e2, prior_ba_info=1e5,
+        )
+
+    def _init_fiba_apply(self) -> None:
+        self.ms, self.ikf, _ = self._init_fiba_slice()
 
     # ------------------------------------------------------------------
     # Mapping slices
@@ -864,6 +1304,13 @@ class SlamSystem:
         protect[0] = True
         for d in range(1, 5):
             protect[max(self.n_kf - d, 0)] = True
+        if self.cfg.is_inertial and self.n_kf > 2:
+            # never cull a keyframe whose removal leaves a window over 3 s
+            # (the inertial culling rule, LocalMapping.cc:1194-1399)
+            times = self._host_kf_times()
+            for i in range(1, self.n_kf - 1):
+                if times[i + 1] - times[i - 1] > 3.0:
+                    protect[i] = True
         n_before = self.n_kf
         self.stats["reclaims"] += 1
         # queued slices capture pre-compaction slot indices: BoW inserts
@@ -901,6 +1348,9 @@ class SlamSystem:
             )
             ms2, new_of_old, n_valid = msx.compact_keyframes(self.ms)
             nv = int(n_valid)
+        if self.cfg.is_inertial:
+            # the validity before compaction drives the chain merge
+            self.ikf = inertial.merge_and_compact(self.ikf, self.ms.kf_valid)
         self.ms = ms2
         noo = new_of_old.cpu().numpy()
         self.loop_closer.compact(noo)
@@ -1008,12 +1458,17 @@ class SlamSystem:
         slices."""
         if not self.enable_loop_closing or self.localization_only:
             return
+        # an inertial map is corrected only once its IMU is initialized
+        # (LoopClosing.cc:366-389)
+        if self.cfg.is_inertial and not self.imu_initialized:
+            return
         if flush:
             kf_idx, cand = self.loop_closer.poll_detect()
         else:
             kf_idx, cand = self.loop_closer.detect_async(self.ms, self.n_kf - 1, self.n_kf)
-        # stereo maps take the SE(3) essential graph (LoopClosing.cc:1239-1245)
-        mode = "se3"
+        # the essential graph per sensor (LoopClosing.cc:1239-1245): inertial
+        # maps 4-DoF (gravity stays observable), stereo maps SE(3)
+        mode, gravity = ("4dof", self.gravity) if self.cfg.is_inertial else ("se3", None)
         lc = self.loop_closer
         ok = False
         if cand < 0:
@@ -1057,10 +1512,17 @@ class SlamSystem:
             return
         R_kf_old = self.ms.kf_R_cw[kf_idx]
         t_kf_old = self.ms.kf_t_cw[kf_idx]
-        self.ms = lc.correct(
-            self.ms, self.n_kf, kf_idx, cand, R_d, t_d, self.cam_params, self.cfg.camera.bf,
-            mode=mode, s_delta=s_d, run_gba=False,
-        )
+        if self.cfg.is_inertial:
+            # velocities turn with each keyframe's pose-graph correction
+            self.ms, self.ikf = lc.correct(
+                self.ms, self.n_kf, kf_idx, cand, R_d, t_d, self.cam_params, self.cfg.camera.bf,
+                mode=mode, gravity=gravity, s_delta=s_d, run_gba=False, ikf=self.ikf,
+            )
+        else:
+            self.ms = lc.correct(
+                self.ms, self.n_kf, kf_idx, cand, R_d, t_d, self.cam_params, self.cfg.camera.bf,
+                mode=mode, s_delta=s_d, run_gba=False,
+            )
         # GBA as bounded slices between the next frames' dispatches
         self._gba_chunks_left = 4
         self._gba_chunks_run = 0
@@ -1086,8 +1548,9 @@ class SlamSystem:
             self._bg_push("fuse", functools.partial(self._fuse_new_duplicates, kf_host))
             self._schedule_local_ba(kf_host)
             self._bg_push("cull_lm", self._cull_landmarks_slice)
-            # redundant-KF culling, every 3rd keyframe
-            if self.n_kf > 6 and kf_host % 3 == 0:
+            # redundant-KF culling, every 3rd keyframe (visual maps only: the
+            # inertial chain keeps its keyframes)
+            if not self.cfg.is_inertial and self.n_kf > 6 and kf_host % 3 == 0:
                 self._bg_drop(("cull_kf",))
                 self._bg_push("cull_kf", self._cull_redundant_slice)
             self._bg_push("loop", self._maybe_close_loop)

@@ -90,8 +90,6 @@ def track_frame(
     first (the reference's local map points), so the matcher and the LM
     iterations run over [track_cap] rather than [L].
     """
-    if prior is not None:
-        raise NotImplementedError("pose priors are not ported")
     L = ms.L
     V = track_cap
     dev = ms.lm_pos.device
@@ -133,7 +131,7 @@ def track_frame(
         opt = ba.pose_optimization(
             R, t, X_v, frame.xy[feat], frame.u_right[feat],
             inv_sigma2_feat[feat], res.valid, cam_params, bf,
-            rounds=rounds, iters=iters, cam_model=cam_model,
+            rounds=rounds, iters=iters, prior=prior, cam_model=cam_model,
         )
         return opt, res, vis
 

@@ -1,7 +1,8 @@
 """SO(3) / SE(3) Lie-group operations on torch tensors.
 
 Port of ``orb_slam3_detailed_comments_kor_tpu/utils/lie.py`` (the functions
-the stereo tracking step, the stereo SLAM loop and loop closing use). Same
+the stereo tracking step, the stereo SLAM loop, loop closing and the
+inertial path use). Same
 conventions: rotations are 3x3 matrices; SE(3) is (R, t) acting as
 x -> R @ x + t; Sim(3) is (R, t, s) acting as x -> s R x + t; ``T_ab`` maps
 b-frame points to the a-frame. Small-angle branches are ``torch.where``
@@ -119,6 +120,11 @@ def so3_left_jacobian(w):
         + _cosc(theta)[..., None, None] * W
         + _sincc(theta)[..., None, None] * W2
     )
+
+
+def so3_right_jacobian(w):
+    """Right Jacobian J_r(w) = J_l(-w) (``ImuTypes.h:276`` RightJacobianSO3)."""
+    return so3_left_jacobian(-w)
 
 
 def project_to_so3(R, iters: int = 6):

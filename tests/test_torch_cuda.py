@@ -17,7 +17,11 @@ against the CPU, a global-BA slice under the sync debug mode in
 "error", and the Atlas merge pass of chip_smoke.py phase 7 at the small
 configuration, card against CPU (the same merge, keyframes and counters,
 poses within TRANS_TOL / ROT_TOL), with a local-BA slice that gives the
-same bits twice on the card.
+same bits twice on the card; and the small stereo-inertial pass
+(``chip_smoke.si_config(small=True)``) on the card against the CPU (the
+same keyframes, IMU init and counters, poses within TRANS_TOL / ROT_TOL,
+gravity within 1e-3 rad), with a VI local-BA slice that gives the same
+bits twice on the card.
 """
 
 import pytest
@@ -232,3 +236,45 @@ def test_local_ba_slice_is_deterministic(dev):
         lambda: tracking.local_ba_step(slam.ms, kf, slam.cam_params, cfg.camera.bf, window=8,
                                        lm_cap=cfg.capacity.max_local_landmarks, iters=2), slam.ms)
     assert all(v == 0 for v in spread.values()), spread
+
+
+def test_small_inertial_pass_card_matches_cpu(dev):
+    # the small stereo-inertial pass (chip_smoke.si_config(small=True), the
+    # CPU test's 22 frames at 10 fps) on the card and on the CPU: the same
+    # keyframes, IMU-init frame and counters; poses within TRANS_TOL /
+    # ROT_TOL; gravity within 1e-3 rad
+    cpu = torch.device("cpu")
+    cfg = chip_smoke.si_config(small=True)
+    si = chip_smoke.SMALL_SI
+    _, frames, imu = chip_smoke.render_si_sequence(cfg, si["frames"], cpu, fps=si["fps"])
+    card = chip_smoke.run_si(cfg, [(a.to(dev), b.to(dev)) for a, b in frames], imu, dev, fps=si["fps"])
+    host = chip_smoke.run_si(cfg, frames, imu, cpu, fps=si["fps"])
+    assert card[1] == host[1] and card[2]["frame"] == host[2]["frame"] and host[0].imu_initialized
+    assert card[0].stats == host[0].stats
+    d_c, d_r = chip_smoke.trajectory_diff(card[0].trajectory_arrays(), host[0].trajectory_arrays())
+    assert d_c.max() <= chip_smoke.TRANS_TOL and d_r.max() <= chip_smoke.ROT_TOL
+    assert chip_smoke.gravity_angle(card[0].gravity.cpu(), host[0].gravity) <= 1e-3
+
+
+def test_vi_local_ba_slice_is_deterministic(dev):
+    # two runs of one VI local-BA slice on the same inputs give the same bits
+    # (the normal equations are summed by segmented scans on the card)
+    from orb_slam3_detailed_comments_kor_tpu_torch.slam import inertial
+
+    cfg = chip_smoke.si_config(small=True)
+    si = chip_smoke.SMALL_SI
+    _, frames, imu = chip_smoke.render_si_sequence(cfg, si["frames"], dev, fps=si["fps"])
+    slam = chip_smoke.run_si(cfg, frames, imu, dev, fps=si["fps"])[0]
+    slam.flush_decisions()
+    assert slam.imu_initialized
+
+    def vi_slice():
+        return inertial.local_vi_ba_step(slam.ms, slam.ikf, slam.n_kf - 1, slam.gravity, slam.cam_params,
+                                         slam.R_cb, slam.t_cb, cfg.camera.bf, window=10,
+                                         lm_cap=cfg.capacity.max_local_landmarks, iters=2)
+
+    (ms_a, ikf_a, cost_a), (ms_b, ikf_b, cost_b) = vi_slice(), vi_slice()
+    for a, b in zip((ms_a.kf_R_cw, ms_a.kf_t_cw, ms_a.lm_pos, ikf_a.vel, ikf_a.bg, ikf_a.ba, cost_a),
+                    (ms_b.kf_R_cw, ms_b.kf_t_cw, ms_b.lm_pos, ikf_b.vel, ikf_b.bg, ikf_b.ba, cost_b)):
+        assert torch.equal(a, b)
+    assert not torch.equal(ms_a.kf_t_cw, slam.ms.kf_t_cw)  # the slice moved the window

@@ -35,6 +35,8 @@ SLICE_MODULES = [
     "slam.loop_closing",
     # the Atlas merge, checkpoints and localization mode
     "slam.checkpoint",
+    # the stereo-inertial path
+    "ops.imu", "optim.vi_ba", "optim.vi_init", "optim.vio", "slam.inertial",
 ]
 
 
@@ -101,7 +103,9 @@ def test_config_fields_equal(name):
     "module,name",
     [("slam.map_state", "empty_map"), ("io.synthetic", "default_scene"),
      ("models.camera", "camera_params_from_config"), ("slam.system", "SlamSystem"),
-     ("models.vocabulary", "load_default"), ("utils.prng", "key_from_bytes")],
+     ("models.vocabulary", "load_default"), ("utils.prng", "key_from_bytes"),
+     ("slam.inertial", "empty_inertial"), ("ops.imu", "identity_preintegrated"),
+     ("io.synthetic", "AnalyticTrajectory")],
 )
 def test_entry_points_default_to_cuda(module, name):
     """Entry points that make tensors from nothing put them on the card
@@ -118,7 +122,10 @@ def test_entry_points_default_to_cuda(module, name):
      ("slam.map_merging", "verify_merge"), ("slam.map_merging", "_concat_maps"),
      ("slam.checkpoint", "save_map"), ("slam.checkpoint", "load_map"),
      ("slam.system", "SlamSystem.save_map"), ("slam.system", "SlamSystem.load_map"),
-     ("slam.system", "SlamSystem.activate_localization_mode"), ("slam.system", "SlamSystem._loc_vo_fallback")],
+     ("slam.system", "SlamSystem.activate_localization_mode"), ("slam.system", "SlamSystem._loc_vo_fallback"),
+     ("slam.system", "SlamSystem.track_stereo_inertial"), ("slam.inertial", "local_vi_ba_step"),
+     ("slam.inertial", "full_inertial_ba"), ("slam.inertial", "initialize_imu"), ("optim.vio", "vio_frame_step"),
+     ("optim.vi_ba", "vi_bundle_adjust"), ("slam.loop_closing", "LoopCloser.correct")],
 )
 def test_entry_points_follow_their_inputs_device(module, name):
     """Entry points that work on a system's or a map's tensors take no
