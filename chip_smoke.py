@@ -118,6 +118,44 @@ Phase 8  the stereo-inertial pass at bench scale (bench.py's
          no slice make no synchronizing call, and the three kernels
          equal their plain versions at the inertial frame's inputs with one
          device kernel per call.
+Phase 9  the monocular pass at bench scale: ``SlamSystem.track_mono``
+         (``mono_config()``: the stereo setup with a MONOCULAR sensor and bf
+         = 0, loop closing on) over phase 4's 130 strafe frames, left images
+         rendered on the card, after a 12-frame warm-up pass that records
+         the kernels' inputs at one tracked mono frame. Every frame blocks
+         on its pose and runs under the sync debug mode (the batched
+         decision read left out). Prints one ``phase 9 (<card>): {json}``
+         line: the two-view initialization frame, keyframes, loops and the
+         scale-aligned ATE beside the JAX reference's (REF_MONO,
+         ``tools/jax_mono_ref.py --pass mono``), frame wall p50/p99,
+         frames/s, the peak memory, the launches, the device ms and stream
+         operations of one ``full_mono_step``, one keyframe triangulation
+         and the two-view initialization, the host reads of the
+         initializing call and the synchronizing calls by frame kind. It
+         fails unless the state is OK, the initialization frame, loops and
+         lost frames equal the reference's, the keyframes are within 2 of
+         its, the ATE is at most its plus 5 mm, the initializing call reads
+         the host at most MONO_INIT_REF_READS times, tracked frames make no
+         synchronizing call, and the three kernels equal their plain
+         versions at the mono frame's inputs with one device kernel a call.
+Phase 10 the monocular-inertial pass at bench scale: ``track_mono_inertial``
+         (``mi_config()``: IMU_MONOCULAR, bf = 0, a keyframe at least every
+         6 frames) over 130 frames of ``AnalyticTrajectory(excitation=3.0)``
+         at 20 fps with bench.py's 200 Hz samples, after a 12-frame warm-up
+         pass that records the kernels' inputs. Prints one ``phase 10
+         (<card>): {json}`` line (frame wall p50/p99, frames/s, the
+         initializations, keyframes, lost frames and relocalizations, the
+         ATE with and without scale alignment, the stride-10 path-length
+         ratio, gravity, the device ms of the scale-estimating
+         ``initialize_imu``, the synchronizing calls by frame kind) and
+         fails unless the two-view and IMU initializations (frame,
+         keyframes), loops, lost frames and final state equal the JAX
+         reference's (REF_MI), the stride-10 ratio is within 0.02 and the
+         gravity within 0.01 rad of its, the ATEs are within the bounds
+         REF_MI's comment gives (the reference loses track after its IMU
+         initialization, ROADMAP F23), tracked frames make no synchronizing
+         call, and the kernels equal their plain versions at one frame's
+         inputs.
 
 The last stdout line is {"ok": true, "device": {...}}; the line before it
 lists every kernel with its launches, error, times and bound, and the
@@ -157,6 +195,12 @@ MAX_CENTRE_ERR = 0.03       # m; the JAX reference stays within 0.0097 m
 DEVICE = "cuda:0"
 # parity tolerances between the card and the CPU on one tracked frame
 ROT_TOL, TRANS_TOL = 1e-3, 2e-3
+# ... and over the small monocular pass, in the map's gauge (median depth 2
+# at initialization): points triangulated at low parallax carry float32
+# rounding into every later pose; the card (an NVIDIA H100 80GB HBM3 at
+# 700 W) and the CPU differ by up to 2.34 mm on it, the port and the JAX
+# reference on the CPU by 1.65 mm
+MONO_TRANS_TOL = 5e-3
 # Phases 4-5: the SLAM loop. bench.py's stereo configuration and sequence
 # (130 strafe frames at 0.03 m/frame, 20 fps, 64 keyframe slots, 4096 local
 # landmarks, a keyframe at least every 10 frames), loop closing off.
@@ -185,6 +229,11 @@ REF_SI = dict(ate_m=0.0035529118298487233, state=1, n_kf=14,
               loops_closed=0, lost_frames=0, landmarks=2065)
 # the small stereo-inertial pass of the CPU tests and the cuda test: 10 fps
 SMALL_SI = dict(frames=22, fps=10.0)
+# the small monocular pass of the CPU tests and the cuda test (the strafe of
+# the JAX package's tests/test_mono.py) and the small monocular-inertial
+# pass of the CPU tests (10 fps, AnalyticTrajectory(excitation=3.0))
+SMALL_MONO = dict(frames=20, speed=0.05)
+SMALL_MI = dict(frames=25, fps=10.0)
 SLEEP_MS = 400  # the sleep kernel that a slice call must return before
 # Phase 6: bench.py's loop-closure latency pass (``bench_loop_latency``):
 # bench.py's stereo configuration, its 150-frame out-and-back sequence at
@@ -1531,25 +1580,58 @@ def si_config(small=False):
     )
 
 
-def render_si_sequence(cfg, n, dev, fps=FPS, rate=SI_IMU_RATE):
+def mono_config(small=False):
+    """The monocular SLAMConfig. Phase 9's: ``loop_config()``'s geometry
+    and capacity (bench.py's stereo setup) with a MONOCULAR sensor and bf =
+    0. Small: the JAX package's ``tests/test_slam_e2e.small_config()``
+    (240x376, 600 features, 32 keyframe slots) with a MONOCULAR sensor, a
+    keyframe at least every 3 frames and synchronous decisions."""
+    from orb_slam3_detailed_comments_kor_tpu_torch.config import SensorType, TrackingConfig
+
+    if small:
+        return dataclasses.replace(loop_config(small=True, closure=True), sensor=SensorType.MONOCULAR,
+                                   tracking=TrackingConfig(max_frames_between_kf=3, decision_batch=1))
+    cfg = loop_config()
+    return dataclasses.replace(cfg, sensor=SensorType.MONOCULAR, camera=dataclasses.replace(cfg.camera, bf=0.0))
+
+
+def mi_config(small=False):
+    """The monocular-inertial SLAMConfig: ``si_config(small)`` with an
+    IMU_MONOCULAR sensor and bf = 0; at bench scale (phase 10) a keyframe
+    at least every 6 frames, as ``tests/test_mono_inertial.py:26-39``."""
+    from orb_slam3_detailed_comments_kor_tpu_torch.config import SensorType
+
+    cfg = si_config(small)
+    tracking = cfg.tracking if small else dataclasses.replace(cfg.tracking, max_frames_between_kf=6)
+    return dataclasses.replace(cfg, sensor=SensorType.IMU_MONOCULAR, tracking=tracking,
+                               camera=dataclasses.replace(cfg.camera, bf=0.0))
+
+
+def render_si_sequence(cfg, n, dev, fps=FPS, rate=SI_IMU_RATE, mono=False, excitation=1.0):
     """bench.py's stereo-inertial data (``bench.py:301-324``) at ``cfg``'s
     camera on ``dev``: the poses of ``synthetic.AnalyticTrajectory`` at
-    ``fps``, a stereo pair at each, and each frame's IMU samples since the
-    previous frame at ``rate`` (midpoint-sampled, stamped at the end of
-    their interval), made in one batch on ``dev``. Returns (ground-truth
-    body positions [n, 3] numpy, the pairs, the per-frame sample lists)."""
+    ``fps``, a stereo pair at each (``mono``: one image), and each frame's
+    IMU samples since the previous frame at ``rate`` (midpoint-sampled,
+    stamped at the end of their interval), made in one batch on ``dev``.
+    ``excitation`` scales the trajectory's translation frequencies (the
+    monocular-inertial passes take 3.0, so that the scale is observable).
+    Returns (ground-truth body positions [n, 3] numpy, the pairs or images,
+    the per-frame sample lists)."""
     from orb_slam3_detailed_comments_kor_tpu_torch.io import synthetic
 
     c = cfg.camera
     cam = torch.tensor([c.fx, c.fy, c.cx, c.cy], dtype=torch.float32, device=dev)
     scene = synthetic.default_scene(dev)
-    traj = synthetic.AnalyticTrajectory(device=dev)
+    traj = synthetic.AnalyticTrajectory(excitation=excitation, device=dev)
     frames, gt, stamps, mids = [], [], [], []
     for i in range(n):
         t = i / fps
         R_wb, p_wb = traj.pose(t)
         gt.append(p_wb.cpu().numpy())
-        frames.append(synthetic.stereo_pair(cam, R_wb, p_wb, BASELINE, scene, h=c.height, w=c.width)[:2])
+        if mono:
+            frames.append(synthetic.render(cam, R_wb, p_wb, scene, h=c.height, w=c.width)[0])
+        else:
+            frames.append(synthetic.stereo_pair(cam, R_wb, p_wb, BASELINE, scene, h=c.height, w=c.width)[:2])
         row = []
         if i > 0:
             t0s = (i - 1) / fps
@@ -1830,6 +1912,409 @@ def phase8(dev, counters, per_kernel, smi):
     if bad:
         raise AssertionError("phase 8: " + "; ".join(bad))
     return si
+
+
+# Phase 9: the monocular pass (phase 4's strafe, left images, loop closing
+# on) and phase 10: the monocular-inertial pass (130 frames of
+# AnalyticTrajectory(excitation=3.0) at 20 fps, a 200 Hz IMU). The warm-up
+# pass of each runs MONO_WARMUP frames and records the kernels' inputs at
+# frame MONO_PROFILE_FRAME, a tracked frame.
+MONO_FRAMES, MONO_WARMUP, MONO_PROFILE_FRAME = 130, 12, 10
+MONO_KF_TOL, MI_SCALE_TOL, MI_GRAVITY_TOL = 2, 0.02, 0.01
+# launches of each kernel per tracked monocular frame: process_mono's FAST
+# and patch gather (ops/orb.py) and tracking's three projection searches
+LAUNCHES_PER_MONO_FRAME = {"fast_nms": 1, "gather_patches": 1, "masked_best2": 3}
+# tools/jax_mono_ref.py --pass mono: the JAX reference's run of phase 9's
+# pass on a CPU (one device, asynchronous dispatch off; 91 s): two-view
+# initialization at frame 4, 14 keyframes, no loop, final state OK, 2727
+# landmarks, ATE over all 130 frames after a similarity alignment
+# (ate_rmse(..., with_scale=True)) 11.96 mm
+REF_MONO = dict(init_frame=4, state=1, n_kf=14, keyframe_frames=[4, 17, 25, 37, 45, 57, 65, 77, 85, 97, 105, 117, 125],
+                loops_closed=0, lost_frames=0, landmarks=2727, ate_scale_aligned_m=0.011962742955505114)
+# the reference's host reads in the call that initializes (its
+# _mono_initialize, slam/system.py:1065-1134): the frame's feature count,
+# the match count, the reconstruction's verdict and its point count
+MONO_INIT_REF_READS = 4
+# tools/jax_mono_ref.py --pass mi (568 s on a CPU): two-view
+# initialization at frame 1; the IMU and the metric scale initialized at
+# frame 46 with 12 keyframes, at a scale that leaves the trajectory 2.76
+# times too long; after it the reference tracks no frame (86 frames decided
+# lost, each relocalized against the re-gauged map) and inserts no
+# keyframe (ROADMAP F23); final state OK; ATE without scale alignment
+# 5.084 m, with it 0.592 m; stride-10 path-length ratio 2.762; no loop.
+# On this run the unaligned ATE is the scale error: the same tool with
+# XLA's CPU reductions single-threaded (XLA_FLAGS=
+# "--xla_cpu_multi_thread_eigen=false intra_op_parallelism_threads=1")
+# gives 5.0907 m and 2.7650, the scale-aligned ATE 0.5916 m. So phase 10
+# holds the unaligned ATE to the reference's plus 5 mm plus the share of
+# it that the stride-10 ratio's tolerance allows (MI_SCALE_TOL / 2.762 of
+# 5.084 m, 37 mm), and the scale-aligned ATE to the reference's plus 5 mm
+REF_MI = dict(init_frame=1, state=1, n_kf=12, keyframe_frames=[1, 6, 14, 22, 26, 34, 38, 46], loops_closed=0,
+              lost_frames=86, landmarks=2849, ate_m=5.0844786398050275, ate_scale_aligned_m=0.591584435012068,
+              imu_init=dict(frame=46, n_kf=12, gravity=[1.5408271551132202, 9.688064575195312, -0.05806245282292366]),
+              gravity_end=[1.5408271551132202, 9.688064575195312, -0.05806245282292366],
+              path_ratio_stride10=2.7619152069091797)
+
+
+def render_mono_sequence(cfg, n, dev, speed=SPEED):
+    """Phase 4's strafe (0.03 m/frame, or ``speed``) as left images at
+    ``cfg``'s camera on ``dev``: ground-truth centres [n, 3] (numpy) and n
+    images."""
+    from orb_slam3_detailed_comments_kor_tpu_torch.io import synthetic
+
+    c = cfg.camera
+    cam = torch.tensor([c.fx, c.fy, c.cx, c.cy], dtype=torch.float32, device=dev)
+    scene = synthetic.default_scene(dev)
+    Rs, ts = synthetic.make_trajectory(n, "strafe", speed=speed)
+    imgs = [synthetic.render(cam, torch.from_numpy(Rs[i]).to(dev), torch.from_numpy(ts[i]).to(dev), scene,
+                             h=c.height, w=c.width)[0] for i in range(n)]
+    return ts, imgs
+
+
+def run_mono(cfg, imgs, dev, imu=None, on_frame=None, timer=False, fps=FPS):
+    """Feed monocular images (with ``imu``'s per-frame samples: through
+    ``track_mono_inertial``) to a new SlamSystem on ``dev`` (loop closing
+    on). ``on_frame(i, slam, call)`` may wrap each frame's ``call()``.
+    Returns (slam, keyframe frames, init frame, {frame, n_kf, gravity} at
+    IMU initialization)."""
+    from orb_slam3_detailed_comments_kor_tpu_torch.slam.system import SlamSystem, TrackingState
+    from orb_slam3_detailed_comments_kor_tpu_torch.utils.timing import StageTimer
+
+    slam = SlamSystem(cfg, device=dev)
+    slam.timer = StageTimer(enabled=timer)
+    kf_at, init, imu_init = [], None, None
+    for i, img in enumerate(imgs):
+        n0 = slam.stats["kf_inserted"]
+        if imu is None:
+            call = lambda _i=i, _m=img: slam.track_mono(_m, _i / fps)
+        else:
+            call = lambda _i=i, _m=img: slam.track_mono_inertial(_m, _i / fps, imu[_i])
+        on_frame(i, slam, call) if on_frame else call()
+        if slam.stats["kf_inserted"] != n0:
+            kf_at.append(i)
+        if init is None and slam.state == TrackingState.OK:
+            init = i
+        if imu is not None and imu_init is None and slam.imu_initialized:
+            imu_init = dict(frame=i, n_kf=slam.n_kf, gravity=slam.gravity.cpu().tolist())
+    return slam, kf_at, init, imu_init
+
+
+def watched_frames(records, lat):
+    """An ``on_frame`` that runs each frame under the sync debug mode with
+    the batched decision read left out, so that each synchronizing call it
+    counts is a host read of a value, and records per frame the slice it
+    serviced (``kind``), the state before and after, the synchronizing calls
+    and the wall ms (blocking on the frame's pose)."""
+    from orb_slam3_detailed_comments_kor_tpu_torch.utils.host_read import HostRead
+
+    read_numpy = HostRead.numpy
+    calls = {}
+
+    def unwatched_read(self):
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return read_numpy(self)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+
+    def on_frame(i, slam, call):
+        if i == 0:
+            count_system_calls(slam, calls)  # frames that take the lost path
+        kind = slam._bg_queue[0][0] if slam._bg_queue else (
+            "gba_chunk" if slam._gba_chunks_left > 0 else "tracking")
+        state0, n_kf0, lost0 = slam.state, slam.n_kf, calls.get("lost", 0)
+        init0 = getattr(slam, "imu_initialized", False)
+        HostRead.numpy = unwatched_read
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                call()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                HostRead.numpy = read_numpy
+        slam.t_cw.cpu()  # block on the frame's pose, as bench.py's latency pass does
+        lat.append((time.perf_counter() - t0) * 1e3)
+        syncs = [str(w.message).splitlines()[0] for w in caught if SYNC_WARNING in str(w.message)]
+        if getattr(slam, "imu_initialized", False) and not init0:
+            kind = "imu_init"
+        elif state0 == 0:
+            kind = "initializing"
+        elif state0 != 1 or slam.state != 1 or calls.get("lost", 0) != lost0:
+            kind = "lost"  # decided lost (relocalized or not)
+        elif slam.n_kf != n_kf0 and kind == "tracking":
+            kind = "keyframe"  # a decision inserted a keyframe inline
+        records.append(dict(frame=i, kind=kind, syncs=len(syncs), sync_calls=sorted(set(syncs))[:3],
+                            ms=lat[-1]))
+
+    on_frame.calls = calls
+    return on_frame
+
+
+def sync_summary(records):
+    return {k: dict(frames=sum(1 for f in records if f["kind"] == k),
+                    syncs=sum(f["syncs"] for f in records if f["kind"] == k))
+            for k in sorted({f["kind"] for f in records})}
+
+
+def phase9(dev, counters, per_kernel, smi):
+    """Phase 9: the monocular pass at bench scale (see the module
+    docstring). Prints its JSON line, raises on a failed check, holds the
+    three kernels against their plain versions at one monocular frame's
+    inputs (into ``per_kernel``) and returns the pass's record."""
+    from orb_slam3_detailed_comments_kor_tpu_torch.eval import ate
+    from orb_slam3_detailed_comments_kor_tpu_torch.models import vocabulary as voc
+    from orb_slam3_detailed_comments_kor_tpu_torch.ops import twoview
+    from orb_slam3_detailed_comments_kor_tpu_torch.slam import system as slam_mod
+    from orb_slam3_detailed_comments_kor_tpu_torch.slam import tracking
+
+    cfg = mono_config()
+    t_p9 = time.time()
+    gt9, imgs9 = render_mono_sequence(cfg, MONO_FRAMES, dev)
+    voc.load_default(dev)
+    torch.cuda.synchronize()
+    # the warm-up pass; it records the kernels' inputs in one tracked frame
+    # and counts that frame's stream operations
+    kcalls, frame_ops = {}, {}
+
+    def warm_frame(i, slam, call):
+        if i != MONO_PROFILE_FRAME:
+            call()
+            return
+        if slam.state != slam_mod.TrackingState.OK:
+            raise AssertionError(f"phase 9: frame {i} is not tracked in the warm-up pass")
+        torch.cuda.synchronize()
+        with recording_kernel_calls(kcalls):
+            call()
+            torch.cuda.synchronize()
+
+    warm, _, warm_init, _ = run_mono(cfg, imgs9[:MONO_WARMUP], dev, on_frame=warm_frame)
+    warm.flush_decisions()
+    del warm
+    torch.cuda.synchronize()
+    log(f"phase 9: rendered {MONO_FRAMES} images and ran a {MONO_WARMUP}-frame warm-up pass (init at frame "
+        f"{warm_init}) in {time.time() - t_p9:.1f} s")
+    if any(len(kcalls.get(k, ())) < n for k, n in LAUNCHES_PER_MONO_FRAME.items()):
+        raise AssertionError(f"phase 9: kernel calls in a tracked frame "
+                             f"{ {k: len(v) for k, v in kcalls.items()} }, expected {LAUNCHES_PER_MONO_FRAME}")
+    run_checks(main_path_checks(kcalls, f"mono frame {MONO_PROFILE_FRAME}: "), counters, per_kernel)
+
+    # the timed pass: every frame blocks on its pose and runs under the
+    # sync debug mode; the launch counters and the peak memory are its own
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    lat, records, last = [], [], {}
+    init_reads = []
+    mono_init = slam_mod.SlamSystem._mono_initialize
+
+    def init_counted(self, frame, t):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                mono_init(self, frame, t)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+        if self.state == slam_mod.TrackingState.OK:
+            init_reads.append([str(w.message).splitlines()[0] for w in caught if SYNC_WARNING in str(w.message)])
+
+    slam_mod.SlamSystem._mono_initialize = init_counted
+    t_pass = time.perf_counter()
+    try:
+        with recording_last_call(tracking, "full_mono_step", last), \
+                recording_last_call(tracking, "triangulate_with_neighbor", last), \
+                recording_last_call(tracking, "add_triangulated_landmarks", last), \
+                recording_last_call(twoview, "reconstruct_two_views_hf", last):
+            watch = watched_frames(records, lat)
+            slam, kf_at, init, _ = run_mono(cfg, imgs9, dev, on_frame=watch, timer=True)
+            slam.flush_decisions()
+            slam.t_cw.cpu()
+    finally:
+        slam_mod.SlamSystem._mono_initialize = mono_init
+    pass_s = time.perf_counter() - t_pass
+    launches9 = {k: fn.launches for k, fn in counters.items()}
+    peak9 = torch.cuda.max_memory_allocated() / 2**20
+    _, centers, _ = slam.trajectory_arrays()
+    ate9 = ate.ate_rmse(centers, gt9[: len(centers)], with_scale=True)
+
+    def insertion():
+        fb, Xw, want, nb = tracking.triangulate_with_neighbor(*last["triangulate_with_neighbor"][0],
+                                                              **last["triangulate_with_neighbor"][1])
+        a = last["add_triangulated_landmarks"][0]
+        return tracking.add_triangulated_landmarks(a[0], a[1], nb, fb, Xw, want, *a[6:],
+                                                   **last["add_triangulated_landmarks"][1])
+
+    slices = {
+        "full_mono_step": lambda: tracking.full_mono_step(*last["full_mono_step"][0], **last["full_mono_step"][1]),
+        "keyframe_triangulation": insertion,
+        "two_view_init": lambda: twoview.reconstruct_two_views_hf(*last["reconstruct_two_views_hf"][0],
+                                                                  **last["reconstruct_two_views_hf"][1]),
+    }
+    slice_ms = {k: profiled_device_ms(f) for k, f in slices.items()}
+    slice_ops = {k: stream_ops(f) for k, f in slices.items()}
+    # reported, not required: whether each captures in a CUDA graph (the
+    # capture of the tracking step is later work)
+    capture = {k: graph_capture_error(slices[k]) for k in ("full_mono_step", "keyframe_triangulation")}
+    lat_s = np.array(lat[5:])
+    n_tracked = sum(1 for f in records if f["kind"] not in ("initializing", "lost"))
+    rec = dict(
+        frames=len(slam.trajectory), state=slam.state, init_frame=init, keyframes=slam.n_kf, keyframe_frames=kf_at,
+        loops_closed=slam.loop_closer.n_loops_closed, stats=slam.stats, lost_frames=watch.calls.get("lost", 0),
+        landmarks=int(slam.ms.lm_valid.sum()), ate_scale_aligned_m=ate9, ref=REF_MONO,
+        frame_p50_ms=float(np.percentile(lat_s, 50)), frame_p99_ms=float(np.percentile(lat_s, 99)),
+        frame_max_ms=float(lat_s.max()), frames_per_s=MONO_FRAMES / pass_s, peak_mib=peak9, launches=launches9,
+        tracked_frames=n_tracked, slice_device_ms=slice_ms, slice_stream_ops=slice_ops,
+        stereo_step_stream_ops=16077, slice_graph_capture_error=capture,
+        init_call_host_reads=[len(r) for r in init_reads], init_call_read_sites=init_reads[:1],
+        init_ref_host_reads=MONO_INIT_REF_READS, syncs_by_kind=sync_summary(records),
+        sync_calls=sorted({c for f in records if f["kind"] == "tracking" for c in f["sync_calls"]})[:8],
+        host_stage_ms={k: {"count": v["count"], "p50_ms": v["p50_ms"], "max_ms": v["max_ms"],
+                           "total_ms": v["total_ms"]} for k, v in slam.timer.summary().items()},
+    )
+    log(f"phase 9 ({smi}): " + json.dumps(rec))
+    log(f"phase 9: {MONO_FRAMES} frames in {pass_s:.2f} s ({rec['frames_per_s']:.2f} frames/s), frame wall p50 "
+        f"{rec['frame_p50_ms']:.2f} ms p99 {rec['frame_p99_ms']:.2f} ms; init at frame {init} (reference "
+        f"{REF_MONO['init_frame']}); {slam.n_kf} keyframes (reference {REF_MONO['n_kf']}); scale-aligned ATE "
+        f"{ate9 * 1e3:.3f} mm (reference {REF_MONO['ate_scale_aligned_m'] * 1e3:.3f} mm); device ms "
+        + ", ".join(f"{k} {v:.3f}" for k, v in slice_ms.items())
+        + f"; stream operations {slice_ops}; peak {peak9:.1f} MiB; phase 9 took {time.time() - t_p9:.1f} s")
+    bad = []
+    if slam.state != REF_MONO["state"] or len(slam.trajectory) != MONO_FRAMES:
+        bad.append(f"final state {slam.state}, {len(slam.trajectory)} frames recorded")
+    if init != REF_MONO["init_frame"]:
+        bad.append(f"initialized at frame {init}, the reference at {REF_MONO['init_frame']}")
+    if abs(slam.n_kf - REF_MONO["n_kf"]) > MONO_KF_TOL:
+        bad.append(f"{slam.n_kf} keyframes, the reference's {REF_MONO['n_kf']}")
+    if rec["loops_closed"] != REF_MONO["loops_closed"] or rec["lost_frames"] != REF_MONO["lost_frames"]:
+        bad.append(f"{rec['loops_closed']} loops closed and {rec['lost_frames']} frames decided lost, the "
+                   f"reference's {REF_MONO['loops_closed']} and {REF_MONO['lost_frames']}")
+    if not ate9 <= REF_MONO["ate_scale_aligned_m"] + ATE_MARGIN:
+        bad.append(f"scale-aligned ATE {ate9} m")
+    if len(init_reads) != 1 or len(init_reads[0]) > MONO_INIT_REF_READS:
+        bad.append(f"initialization host reads {rec['init_call_host_reads']}, the reference's {MONO_INIT_REF_READS}")
+    tracking_syncs = sum(f["syncs"] for f in records if f["kind"] in ("tracking", "keyframe"))
+    if tracking_syncs:
+        bad.append(f"{tracking_syncs} synchronizing calls in tracked frames: {rec['sync_calls']}")
+    for k, n in LAUNCHES_PER_MONO_FRAME.items():
+        if launches9[k] < n * (MONO_FRAMES - 1 - REF_MONO["init_frame"]):
+            bad.append(f"{k}: {launches9[k]} launches over the pass")
+    if bad:
+        raise AssertionError("phase 9: " + "; ".join(bad))
+    return rec
+
+
+def phase10(dev, counters, per_kernel, smi):
+    """Phase 10: the monocular-inertial pass at bench scale (see the module
+    docstring). Prints its JSON line, raises on a failed check, holds the
+    three kernels against their plain versions at one monocular-inertial
+    frame's inputs (into ``per_kernel``) and returns the pass's record."""
+    from orb_slam3_detailed_comments_kor_tpu_torch.eval import ate
+    from orb_slam3_detailed_comments_kor_tpu_torch.slam import inertial
+
+    cfg = mi_config()
+    t_p10 = time.time()
+    gt10, frames10, imu10 = render_si_sequence(cfg, MONO_FRAMES, dev, mono=True, excitation=3.0)
+    torch.cuda.synchronize()
+    kcalls = {}
+
+    def warm_frame(i, slam, call):
+        if i != MONO_PROFILE_FRAME:
+            call()
+            return
+        torch.cuda.synchronize()
+        with recording_kernel_calls(kcalls):
+            call()
+            torch.cuda.synchronize()
+
+    warm, _, warm_init, _ = run_mono(cfg, frames10[:MONO_WARMUP], dev, imu=imu10, on_frame=warm_frame)
+    warm.flush_decisions()
+    del warm
+    torch.cuda.synchronize()
+    log(f"phase 10: rendered {MONO_FRAMES} images and their IMU samples and ran a {MONO_WARMUP}-frame warm-up "
+        f"pass (init at frame {warm_init}) in {time.time() - t_p10:.1f} s")
+    run_checks(main_path_checks(kcalls, f"mono-inertial frame {MONO_PROFILE_FRAME}: "), counters, per_kernel)
+
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    lat, records, last = [], [], {}
+    t_pass = time.perf_counter()
+    with recording_last_call(inertial, "initialize_imu", last):
+        watch = watched_frames(records, lat)
+        slam, kf_at, init, imu_init = run_mono(cfg, frames10, dev, imu=imu10, on_frame=watch, timer=True)
+        slam.flush_decisions()
+        slam.t_cw.cpu()
+    pass_s = time.perf_counter() - t_pass
+    launches10 = {k: fn.launches for k, fn in counters.items()}
+    peak10 = torch.cuda.max_memory_allocated() / 2**20
+    _, centers, _ = slam.trajectory_arrays()
+    g = gt10[: len(centers)]
+    ate10 = ate.ate_rmse(centers, g)
+    c10, g10 = centers[::10], g[::10]
+    ratio = float(np.linalg.norm(np.diff(c10, axis=0), axis=1).sum() / np.linalg.norm(np.diff(g10, axis=0), axis=1).sum())
+    g_end = slam.gravity.cpu().tolist()
+    slice_ms = {}
+    if "initialize_imu" in last:
+        a, k = last["initialize_imu"]
+        slice_ms["initialize_imu_scale"] = profiled_device_ms(lambda: inertial.initialize_imu(*a, **k))
+    lat_s = np.array(lat[5:])
+    rec = dict(
+        frames=len(slam.trajectory), state=slam.state, init_frame=init, imu_init=imu_init, keyframes=slam.n_kf,
+        keyframe_frames=kf_at, loops_closed=slam.loop_closer.n_loops_closed, stats=slam.stats,
+        lost_frames=watch.calls.get("lost", 0), relocalizations=watch.calls.get("relocalized", 0),
+        landmarks=int(slam.ms.lm_valid.sum()), ate_m=ate10,
+        ate_scale_aligned_m=ate.ate_rmse(centers, g, with_scale=True), path_ratio_stride10=ratio,
+        gravity_end=g_end, gravity_end_vs_ref_rad=gravity_angle(g_end, REF_MI["gravity_end"]), ref=REF_MI,
+        frame_p50_ms=float(np.percentile(lat_s, 50)), frame_p99_ms=float(np.percentile(lat_s, 99)),
+        frame_max_ms=float(lat_s.max()), frames_per_s=MONO_FRAMES / pass_s, peak_mib=peak10, launches=launches10,
+        slice_device_ms=slice_ms, syncs_by_kind=sync_summary(records),
+        sync_calls=sorted({c for f in records if f["kind"] in ("tracking", "keyframe") for c in f["sync_calls"]})[:8],
+        host_stage_ms={k: {"count": v["count"], "p50_ms": v["p50_ms"], "max_ms": v["max_ms"],
+                           "total_ms": v["total_ms"]} for k, v in slam.timer.summary().items()},
+    )
+    log(f"phase 10 ({smi}): " + json.dumps(rec))
+    log(f"phase 10: {MONO_FRAMES} frames in {pass_s:.2f} s ({rec['frames_per_s']:.2f} frames/s), frame wall p50 "
+        f"{rec['frame_p50_ms']:.2f} ms p99 {rec['frame_p99_ms']:.2f} ms; init at frame {init}, IMU init {imu_init} "
+        f"(reference frame {REF_MI['imu_init']['frame']}, {REF_MI['imu_init']['n_kf']} keyframes); ATE "
+        f"{ate10:.4f} m (reference {REF_MI['ate_m']:.4f} m), scale-aligned {rec['ate_scale_aligned_m']:.4f} m "
+        f"(reference {REF_MI['ate_scale_aligned_m']:.4f} m); stride-10 scale {ratio:.4f} (reference "
+        f"{REF_MI['path_ratio_stride10']:.4f}); gravity {rec['gravity_end_vs_ref_rad']:.2e} rad from the reference's; "
+        f"device ms {slice_ms}; peak {peak10:.1f} MiB; phase 10 took {time.time() - t_p10:.1f} s")
+    bad = []
+    if slam.state != REF_MI["state"] or len(slam.trajectory) != MONO_FRAMES:
+        bad.append(f"final state {slam.state}, {len(slam.trajectory)} frames recorded")
+    if init != REF_MI["init_frame"]:
+        bad.append(f"two-view initialization at frame {init}, the reference's at {REF_MI['init_frame']}")
+    if imu_init is None or (imu_init["frame"], imu_init["n_kf"]) != (REF_MI["imu_init"]["frame"],
+                                                                     REF_MI["imu_init"]["n_kf"]):
+        bad.append(f"IMU init {imu_init}, the reference's {REF_MI['imu_init']}")
+    if rec["loops_closed"] != REF_MI["loops_closed"] or rec["lost_frames"] != REF_MI["lost_frames"]:
+        bad.append(f"{rec['loops_closed']} loops closed and {rec['lost_frames']} frames decided lost, the "
+                   f"reference's {REF_MI['loops_closed']} and {REF_MI['lost_frames']}")
+    ate_allowed = REF_MI["ate_m"] * (1.0 + MI_SCALE_TOL / REF_MI["path_ratio_stride10"]) + ATE_MARGIN
+    if not ate10 <= ate_allowed:
+        bad.append(f"ATE {ate10} m, more than {ate_allowed} m")
+    if not rec["ate_scale_aligned_m"] <= REF_MI["ate_scale_aligned_m"] + ATE_MARGIN:
+        bad.append(f"scale-aligned ATE {rec['ate_scale_aligned_m']} m")
+    if not abs(ratio - REF_MI["path_ratio_stride10"]) <= MI_SCALE_TOL:
+        bad.append(f"stride-10 scale {ratio}, the reference's {REF_MI['path_ratio_stride10']}")
+    if not rec["gravity_end_vs_ref_rad"] <= MI_GRAVITY_TOL:
+        bad.append(f"final gravity {rec['gravity_end_vs_ref_rad']:.4f} rad from the reference's")
+    tracking_syncs = sum(f["syncs"] for f in records if f["kind"] in ("tracking", "keyframe"))
+    if tracking_syncs:
+        bad.append(f"{tracking_syncs} synchronizing calls in tracked frames: {rec['sync_calls']}")
+    for k in LAUNCHES_PER_MONO_FRAME:
+        if launches10[k] < MONO_FRAMES - 1:
+            bad.append(f"{k}: {launches10[k]} launches over the pass")
+    if bad:
+        raise AssertionError("phase 10: " + "; ".join(bad))
+    return rec
 
 
 def main() -> int:
@@ -2162,6 +2647,14 @@ def main() -> int:
     t_p8 = time.time()
     rec8 = phase8(dev, counters, per_kernel, smi)
     phase_s["8"] = time.time() - t_p8
+
+    # ---- phases 9 and 10: the monocular and monocular-inertial passes -------
+    t_p9 = time.time()
+    rec9 = phase9(dev, counters, per_kernel, smi)
+    phase_s["9"] = time.time() - t_p9
+    t_p10 = time.time()
+    rec10 = phase10(dev, counters, per_kernel, smi)
+    phase_s["10"] = time.time() - t_p10
     log("phase seconds: " + json.dumps(phase_s))
 
     sources = {
@@ -2179,7 +2672,8 @@ def main() -> int:
             "launches": launches[k], "launches_per_frame": int(per_frame[k]),  # checked whole
             "launches_slam_loop": launches4[k], "launches_per_frame_slam_loop": int(per_frame4[k]),
             "launches_loop_closure_pass": rec6["launches"][k], "launches_merge_pass": rec7["launches"][k],
-            "launches_si_pass": rec8["launches"][k],
+            "launches_si_pass": rec8["launches"][k], "launches_mono_pass": rec9["launches"][k],
+            "launches_mi_pass": rec10["launches"][k],
             "max_abs_err": info["max_abs_err"], "ms": main_case["ms"],
             "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
             "bound_by": main_case["bound_by"], "library_ms": main_case["library_ms"],

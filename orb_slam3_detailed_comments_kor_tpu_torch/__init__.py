@@ -7,8 +7,10 @@ counterpart. Plain tensor code is PyTorch; the reference's three Pallas TPU
 kernels are CUDA C++ kernels for Hopper (``csrc/``), each beside a plain
 PyTorch version that the CPU path runs.
 
-This first slice covers the stereo tracking step
-(``slam.tracking.full_frame_step``) and what it calls.
+It covers the stereo, stereo-inertial, monocular and monocular-inertial
+pinhole paths of ``slam.system.SlamSystem`` (tracking, local mapping,
+loop closing, the Atlas merge, checkpoints and localization mode); the
+RGB-D, fisheye and multi-device paths are not ported.
 
 The package imports torch and numpy only — never jax.
 """

@@ -1,8 +1,9 @@
 """Pinhole camera model on torch tensors.
 
 Port of the pinhole part of ``orb_slam3_detailed_comments_kor_tpu/models/
-camera.py``. ``params`` is [fx, fy, cx, cy]; 3-D points are camera-frame,
-z forward; all functions broadcast over leading batch dims.
+camera.py`` and of its radial-tangential distortion (``distort_radtan``,
+``undistort_radtan``). ``params`` is [fx, fy, cx, cy]; 3-D points are
+camera-frame, z forward; all functions broadcast over leading batch dims.
 """
 
 from __future__ import annotations
@@ -27,6 +28,30 @@ def pinhole_unproject(params, uv):
     x = (uv[..., 0] - cx) / fx
     y = (uv[..., 1] - cy) / fy
     return torch.stack([x, y, torch.ones_like(x)], dim=-1)
+
+
+def distort_radtan(dist, xn):
+    """Radial-tangential distortion of normalized coords [...,2].
+
+    dist = (k1, k2, p1, p2[, k3]): Python floats or a float32 tensor.
+    """
+    k1, k2, p1, p2 = dist[0], dist[1], dist[2], dist[3]
+    k3 = dist[4] if len(dist) > 4 else 0.0
+    x, y = xn[..., 0], xn[..., 1]
+    r2 = x * x + y * y
+    radial = 1.0 + r2 * (k1 + r2 * (k2 + r2 * k3))
+    xd = x * radial + 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
+    yd = y * radial + p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
+    return torch.stack([xd, yd], dim=-1)
+
+
+def undistort_radtan(dist, xd, iters: int = 8):
+    """Invert ``distort_radtan`` by a fixed number of fixed-point steps
+    (cv::undistortPoints equivalent)."""
+    xn = xd
+    for _ in range(iters):
+        xn = xd - (distort_radtan(dist, xn) - xn)
+    return xn
 
 
 def project(params, xyz, model: str = "pinhole"):

@@ -1,18 +1,21 @@
-"""Per-frame stereo front-end: pixels to features + depth.
+"""Per-frame front-end: pixels to features (+ stereo depth).
 
-Port of ``Frame`` and ``process_stereo`` from
-``orb_slam3_detailed_comments_kor_tpu/slam/frontend.py``: both views go
-through one batched ORB extraction (one padded level stack), and the
-stereo matcher reuses that stack and the left patches.
+Port of ``Frame``, ``process_stereo``, ``_undistort_xy`` and
+``process_mono`` from ``orb_slam3_detailed_comments_kor_tpu/slam/
+frontend.py``: both stereo views go through one batched ORB extraction
+(one padded level stack), and the stereo matcher reuses that stack and
+the left patches; a monocular frame is a batch of one.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from orb_slam3_detailed_comments_kor_tpu_torch.models import camera as cam_mod
 from orb_slam3_detailed_comments_kor_tpu_torch.ops import orb as orb_ops
 from orb_slam3_detailed_comments_kor_tpu_torch.ops import pyramid as pyr_ops
 from orb_slam3_detailed_comments_kor_tpu_torch.ops import stereo as stereo_ops
@@ -68,6 +71,54 @@ def process_stereo(
         valid=fl.valid,
         u_right=sd.u_right,
         depth=sd.depth,
+    )
+
+
+@functools.lru_cache(maxsize=8)
+def _dist_tensor(dist, device):
+    """The coefficients as float32 on ``device``, made once per device: a
+    tensor made from host values each frame would wait on the stream."""
+    return torch.tensor(dist, dtype=torch.float32).to(device)
+
+
+def _undistort_xy(xy, cam_params, dist):
+    """Keypoint undistortion (``Frame::UndistortKeyPoints``, ``src/Frame.cc:
+    733``): extraction runs on the raw image; only the coordinates are
+    mapped through the inverse radial-tangential model."""
+    fx, fy, cx, cy = cam_params[0], cam_params[1], cam_params[2], cam_params[3]
+    xn = torch.stack([(xy[:, 0] - cx) / fx, (xy[:, 1] - cy) / fy], dim=-1)
+    xu = cam_mod.undistort_radtan(_dist_tensor(tuple(dist), xy.device), xn)
+    return torch.stack([fx * xu[:, 0] + cx, fy * xu[:, 1] + cy], dim=-1)
+
+
+def process_mono(
+    img: torch.Tensor,
+    n_features: int = 1200,
+    n_levels: int = 8,
+    scale: float = 1.2,
+    cell: int = 32,
+    dist=None,
+    cam_params=None,
+) -> Frame:
+    """img [H,W] float32 (0..255) -> Frame with no right view: ORB on a
+    batch of one, keypoints undistorted when ``dist`` (a tuple of floats)
+    has a non-zero entry."""
+    f = _view(orb_ops.extract_orb_batch(
+        img[None], n_features=n_features, n_levels=n_levels, scale=scale, cell=cell,
+    ), 0)
+    xy = f.xy
+    if dist is not None and any(abs(v) > 0 for v in dist):
+        xy = _undistort_xy(xy, cam_params, dist)
+    n = f.xy.shape[0]
+    return Frame(
+        xy=xy,
+        level=f.level,
+        angle=f.angle,
+        desc=f.desc,
+        desc_packed=orb_ops.pack_descriptors(f.desc),
+        valid=f.valid,
+        u_right=torch.full((n,), -1.0, device=img.device),
+        depth=torch.full((n,), -1.0, device=img.device),
     )
 
 

@@ -1,8 +1,8 @@
 """Device-resident SoA map state: keyframes, landmarks, observation graph.
 
 Port of ``MapState``, ``empty_map``, ``allocate_slots``,
-``covisibility_weights``, ``landmark_scale_band``, ``predict_level`` and
-``compact_keyframes`` from
+``covisibility_weights``, ``landmark_scale_band``, ``predict_level``,
+``compact_keyframes`` and ``apply_scale`` from
 ``orb_slam3_detailed_comments_kor_tpu/slam/map_state.py``, plus the numpy
 converters that carry a map between the two packages. Packed descriptors
 (the reference's uint32 words) are stored as int32 bit patterns.
@@ -258,3 +258,17 @@ def compact_keyframes(ms: MapState):
         obs_lm=take(ms.obs_lm, -1),
         lm_first_kf=torch.clamp(first_new, 0, K - 1).to(torch.int32),
     ), new_of_old.to(torch.int32), n_valid
+
+
+def apply_scale(ms: MapState, s) -> MapState:
+    """Re-gauge the whole map by a scalar scale ``s`` (a 0-d tensor or a
+    float; the scale part of ``Map::ApplyScaledRotation``, ``Map.cc:289``),
+    after monocular-inertial initialization solves the metric scale.
+    Landmark positions and keyframe translations scale together, so every
+    reprojection stays as it was."""
+    return ms._replace(
+        lm_pos=ms.lm_pos * s,
+        kf_t_cw=ms.kf_t_cw * s,
+        lm_min_dist=ms.lm_min_dist * s,
+        lm_max_dist=ms.lm_max_dist * s,
+    )

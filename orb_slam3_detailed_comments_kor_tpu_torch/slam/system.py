@@ -1,7 +1,7 @@
-"""Host-side SLAM system facade + tracking state machine, stereo path.
+"""Host-side SLAM system facade + tracking state machine.
 
-Port of the stereo pinhole path of
-``orb_slam3_detailed_comments_kor_tpu/slam/system.py``:
+Port of the stereo, stereo-inertial, monocular and monocular-inertial
+pinhole paths of ``orb_slam3_detailed_comments_kor_tpu/slam/system.py``:
 ``TrackingState``, ``select_eviction_slots``, ``reloc_candidate_groups``
 and the parts of ``SlamSystem`` that ``track_stereo`` reaches -- stereo
 initialization, the deferred, batched keyframe decisions, keyframe
@@ -30,7 +30,11 @@ while shelved maps exist), localization mode, map checkpoints
 path (``track_stereo_inertial``): per-frame IMU preintegration and
 prediction, the per-frame VI state optimization (``optim/vio.py``),
 inertial keyframes, IMU initialization, VI local BA, the inertial global
-BA and the 4-DoF loop correction. Not here: the monocular(-inertial),
+BA and the 4-DoF loop correction. The monocular paths (``track_mono``,
+``track_mono_inertial``) initialize by two views (``ops/twoview.py``),
+track with ``tracking.full_mono_step``, triangulate each keyframe against
+its covisible neighbours, correct loops in Sim(3), and, with an IMU, solve
+the metric scale at IMU initialization and re-gauge the map. Not here: the
 RGB-D and stereo-fisheye paths.
 """
 
@@ -46,8 +50,9 @@ from orb_slam3_detailed_comments_kor_tpu_torch.config import SLAMConfig, SensorT
 from orb_slam3_detailed_comments_kor_tpu_torch.models import camera as cam_mod
 from orb_slam3_detailed_comments_kor_tpu_torch.models import vocabulary as voc
 from orb_slam3_detailed_comments_kor_tpu_torch.ops import imu as imu_ops
-from orb_slam3_detailed_comments_kor_tpu_torch.ops import matching, ransac
+from orb_slam3_detailed_comments_kor_tpu_torch.ops import matching, ransac, twoview
 from orb_slam3_detailed_comments_kor_tpu_torch.ops import orb as orb_ops
+from orb_slam3_detailed_comments_kor_tpu_torch.ops.stereo import _nanmedian
 from orb_slam3_detailed_comments_kor_tpu_torch.optim import ba, vio
 from orb_slam3_detailed_comments_kor_tpu_torch.slam import checkpoint, frontend, inertial
 from orb_slam3_detailed_comments_kor_tpu_torch.slam import map_merging
@@ -150,8 +155,8 @@ def reloc_candidate_groups(
 
 
 class SlamSystem:
-    """Stereo and stereo-inertial SLAM system over device-resident map
-    state.
+    """Stereo, monocular and (stereo- or mono-) inertial SLAM system over
+    device-resident map state.
 
     ``device`` is where the map, the vocabulary and every per-frame tensor
     live: the card unless the caller names another. ``enable_loop_closing``
@@ -164,11 +169,11 @@ class SlamSystem:
 
     def __init__(self, config: SLAMConfig, device="cuda"):
         cam = config.camera
-        if (config.sensor not in (SensorType.STEREO, SensorType.IMU_STEREO)
+        if (config.sensor == SensorType.RGBD
                 or cam.model != "pinhole" or cam.right_intrinsics is not None):
             raise NotImplementedError(
-                "only the stereo and stereo-inertial pinhole paths are ported "
-                "(no mono, mono-inertial, RGB-D or stereo-fisheye configurations)"
+                "only the stereo, stereo-inertial, monocular and monocular-inertial "
+                "pinhole paths are ported (no RGB-D or stereo-fisheye configurations)"
             )
         self.cfg = config
         self.device = torch.device(device)
@@ -182,6 +187,12 @@ class SlamSystem:
                                 device=self.device)
         self.cam_params = cam_mod.camera_params_from_config(cam, device=self.device)
         self.cam_model = cam.model
+        # raw pinhole inputs with distortion: keypoints are undistorted at
+        # extraction (Frame::UndistortKeyPoints, src/Frame.cc:733); stereo
+        # pinhole inputs are taken as rectified
+        self._dist = tuple(float(v) for v in cam.dist) if any(abs(v) > 0 for v in cam.dist) else None
+        # the monocular initialization's held reference (frame, time)
+        self._mono_ref = None
         self.state = TrackingState.NOT_INITIALIZED
         self.R_cw = torch.eye(3, device=self.device)
         self.t_cw = torch.zeros(3, device=self.device)
@@ -193,6 +204,9 @@ class SlamSystem:
         self._vel_flag = {
             v: torch.full((), v, dtype=torch.bool, device=self.device) for v in (False, True)
         }
+        # the mono step's always-present pose prior, with zero information
+        # (no IMU prediction), made once
+        self._zero_prior = (torch.eye(3, device=self.device), torch.zeros(3, device=self.device), 0.0, 0.0)
         self.n_kf = 0
         self.frames_since_kf = 0
         self.inliers_at_last_kf = 0
@@ -269,6 +283,8 @@ class SlamSystem:
         self._suppress_imu_pred = 0
         self._init_kf_count = 0
         self._gba_sweep_pos = None
+        # consecutive monocular IMU initializations refused by the scale guard
+        self._imu_init_failures = 0
 
     def _new_loop_closer(self) -> LoopCloser:
         cap = self.cfg.capacity
@@ -383,6 +399,109 @@ class SlamSystem:
                 cell=self.cfg.orb.cell_size,
                 min_inliers=self.cfg.tracking.min_inliers_local_map,
                 far_dist=self.cfg.camera.th_far_points,
+            )
+        self._after_dispatch(out, t)
+        return out
+
+    # ------------------------------------------------------------------
+    # Monocular mode (System::TrackMonocular)
+    # ------------------------------------------------------------------
+    def track_mono(self, img, t: float) -> int:
+        """Feed one grayscale frame (an array or tensor of [H, W]
+        intensities). The map's scale is arbitrary: the two-view baseline
+        is set so that the median scene depth is 2. Returns the tracking
+        state."""
+        self.n_frames += 1
+        self._check_timestamp_jump(t)
+        img = torch.as_tensor(img, dtype=torch.float32, device=self.device)
+        if self.state == TrackingState.NOT_INITIALIZED:
+            orb = self.cfg.orb
+            frame = frontend.process_mono(
+                img, n_features=orb.n_features, n_levels=orb.n_levels, scale=orb.scale_factor,
+                cell=orb.cell_size, dist=self._dist, cam_params=self.cam_params,
+            )
+            self._mono_initialize(frame, t)
+        else:
+            self._track_mono_fused(img, t)
+        self._record_frame(t)
+        return self.state
+
+    def _mono_initialize(self, frame: frontend.Frame, t: float) -> None:
+        """MonocularInitialization (``Tracking.cc:2373``): hold a reference
+        frame, match a later frame against it in a 100 px window, run the
+        two-view reconstruction and spawn the initial map (two keyframes,
+        the triangulated points, a 10-iteration BA). Host reads: the
+        feature count, the match count, the reconstruction's verdict and
+        its point count, as in the reference."""
+        n_feat = int(frame.valid.sum())
+        if self._mono_ref is None:
+            if n_feat > 100:
+                self._mono_ref = (frame, t)
+            return
+        ref, t_ref = self._mono_ref
+        if n_feat <= 100:
+            self._mono_ref = None
+            return
+        # windowed matching (SearchForInitialization)
+        d2 = torch.sum((ref.xy[:, None, :] - frame.xy[None, :, :]) ** 2, dim=-1)
+        res = matching.match_nn_ratio(ref.desc, frame.desc, ref.valid, frame.valid,
+                                      max_dist=50, ratio=0.9, mask=d2 < 100.0 ** 2)
+        if int(res.valid.sum()) < 100:
+            # a stale reference is replaced (after 1 s, as the reference)
+            if t - t_ref > 1.0:
+                self._mono_ref = (frame, t)
+            return
+        rays_a = cam_mod.unproject(self.cam_params, ref.xy, self.cam_model)
+        rays_b = cam_mod.unproject(self.cam_params, frame.xy[torch.clamp(res.idx, min=0).to(torch.int64)],
+                                   self.cam_model)
+        tv = twoview.reconstruct_two_views_hf(rays_a, rays_b, res.valid, self._split_key(), n_hyp=256,
+                                              inlier_th=(1.5 / self.cfg.camera.fx) ** 2)
+        if not bool(tv.ok):
+            return
+        # gauge: the median triangulated depth becomes 2
+        med = torch.nan_to_num(_nanmedian(torch.where(tv.inlier, tv.X[:, 2], float("nan"))), nan=1.0)
+        s = 2.0 / torch.clamp(med, min=1e-3)
+        X_w = tv.X * s  # the reference frame is the world frame
+        # both keyframes (no landmarks yet), then the triangulated set
+        self.R_cw, self.t_cw = torch.eye(3, device=self.device), torch.zeros(3, device=self.device)
+        self._insert_keyframe_visual_only(ref, t_ref, None)
+        self.R_cw, self.t_cw = tv.R_ba, tv.t_ba * s
+        self._insert_keyframe_visual_only(frame, t, None)
+        orb = self.cfg.orb
+        self.ms = tracking.add_triangulated_landmarks(
+            self.ms, 0, 1, torch.where(tv.inlier, res.idx, -1), X_w, tv.inlier, self.cam_params,
+            scale=orb.scale_factor, n_levels=orb.n_levels,
+        )
+        self.ms = tracking.local_ba_step(
+            self.ms, 1, self.cam_params, self.cfg.camera.bf, window=2,
+            lm_cap=self.cfg.capacity.max_local_landmarks, iters=10, cam_model=self.cam_model,
+        )
+        self.state = TrackingState.OK
+        self.inliers_at_last_kf = int(tv.n_good)
+        self._mono_ref = None
+
+    def _track_mono_fused(self, img, t: float, override_pred=None):
+        """Deferred-decision monocular tracking: the stereo ``_track``
+        pipeline through ``full_mono_step``; an IMU-predicted
+        ``override_pred`` also enters the pose solve as a prior."""
+        cam = self.cfg.camera
+        if override_pred is not None:
+            (R_last, t_last), has_vel = override_pred, self._vel_flag[False]
+        else:
+            R_last, t_last, has_vel = self.R_cw, self.t_cw, self._vel_flag[self.has_velocity]
+        prior = self._zero_prior
+        if override_pred is not None and self.cfg.is_inertial:
+            tc = self.cfg.tracking
+            prior = (R_last, t_last, 1.0 / tc.imu_prior_sigma_rot ** 2, 1.0 / tc.imu_prior_sigma_trans ** 2)
+        self._service_background()
+        orb = self.cfg.orb
+        with self.timer.span("track/dispatch"):
+            out = tracking.full_mono_step(
+                self.ms, img, R_last, t_last, self.vel_R, self.vel_t, has_vel, self.cam_params, prior,
+                bf=cam.bf, w=cam.width, h=cam.height, scale=orb.scale_factor, n_levels=orb.n_levels,
+                n_features=orb.n_features, cell=orb.cell_size,
+                min_inliers=self.cfg.tracking.min_inliers_local_map, far_dist=cam.th_far_points,
+                cam_model=self.cam_model, dist=self._dist,
             )
         self._after_dispatch(out, t)
         return out
@@ -635,6 +754,8 @@ class SlamSystem:
             self._imu_buf.clear()
             self._last_kf_time = None
             self._reset_pre_segments()
+        # a new map initializes by two views again
+        self._mono_ref = None
 
     def _relocalize(self, frame: frontend.Frame) -> bool:
         """BoW candidates + PnP RANSAC (Tracking::Relocalization), in the
@@ -1091,8 +1212,41 @@ class SlamSystem:
         return self.state
 
     def track_mono_inertial(self, img, t: float, imu_samples=None) -> int:
-        raise NotImplementedError("the monocular-inertial path (two-view initialization, "
-                                  "map_state.apply_scale) is not ported")
+        """Feed one grayscale frame and the IMU samples since the previous
+        frame (an iterable of (t, acc[3], gyro[3])). Returns the tracking
+        state."""
+        if self.cfg.sensor != SensorType.IMU_MONOCULAR:
+            raise ValueError("track_mono_inertial needs an IMU_MONOCULAR configuration")
+        for smp in imu_samples or []:
+            self.grab_imu(*smp)
+        self._check_timestamp_jump(t)
+        if self.state == TrackingState.NOT_INITIALIZED:
+            st = self.track_mono(img, t)
+            if self.state == TrackingState.OK:
+                # the two-view initialization made keyframe 0 (at the held
+                # frame's time, as the map stores it in float32) and
+                # keyframe 1 (now): keyframe 1 gets the 0 -> 1 window
+                self._last_kf_time = float(np.float32(self._kf_times_host[0]))
+                pre = self._preintegrate_since_last_kf(t_end=t)
+                self.ikf = inertial.store_preintegration(self.ikf, 1, pre, torch.zeros(3, device=self.device))
+                self._imu_buf = [smp for smp in self._imu_buf if smp[0] > t]
+                self._last_kf_time = t
+                self._reset_pre_segments()
+            self._last_frame_time = t
+            return st
+        self.n_frames += 1
+        pred = self._advance_imu(t)
+        img = torch.as_tensor(img, dtype=torch.float32, device=self.device)
+        if pred is not None:
+            R_pred, t_pred, v2 = pred
+            out = self._track_mono_fused(img, t, override_pred=(R_pred, t_pred))
+            self.frame_vel = v2
+            self._vio_refine(out, t)
+        else:
+            self._track_mono_fused(img, t)
+        self._last_frame_time = t
+        self._record_frame(t)
+        return self.state
 
     def _imu_predicted_pose(self):
         """PredictStateIMU (``Tracking.cc:1561``): the camera pose
@@ -1187,15 +1341,36 @@ class SlamSystem:
         self._last_kf_time = t
 
         cam = self.cfg.camera
+        is_mono = self.cfg.sensor == SensorType.IMU_MONOCULAR
+        if is_mono and self.n_kf >= 3:
+            self._triangulate_new_points(kf_idx)
         if self.n_kf >= 3:
             self._bg_push("fuse", functools.partial(self._fuse_new_duplicates, kf_idx))
         if not self.imu_initialized:
             kt = self._host_kf_times()
             span = float(kt[self.n_kf - 1] - kt[0])
-            if self.n_kf >= 8 and span >= 1.0:
+            # monocular scale needs a longer baseline to be observable
+            # (1 s stereo / 2 s mono, LocalMapping.cc:1574-1607)
+            if self.n_kf >= 8 and span >= (2.0 if is_mono else 1.0):
                 with self.timer.span("mapping/imu_init"):
-                    self.ikf, self.gravity, _ = inertial.initialize_imu(
-                        self.ms, self.ikf, self.n_kf, self.gravity, self.R_cb, self.t_cb)
+                    ikf2, g2, s = inertial.initialize_imu(
+                        self.ms, self.ikf, self.n_kf, self.gravity, self.R_cb, self.t_cb,
+                        estimate_scale=is_mono)
+                if is_mono:
+                    # the scale guard (LocalMapping.cc:1689-1698): retry at
+                    # the next keyframe; repeated failures declare the IMU
+                    # bad and reset the map (LocalMapping.cc:170-177)
+                    s_host = float(s)
+                    if not 0.1 < s_host < 1e3:
+                        self._imu_init_failures += 1
+                        if self._imu_init_failures >= 8:
+                            self._imu_init_failures = 0
+                            self._reset_active_map()
+                        return
+                self._imu_init_failures = 0
+                self.ikf, self.gravity = ikf2, g2
+                if is_mono:
+                    self._apply_map_scale(s, s_host)
                 self.imu_initialized = True
                 self._init_kf_count = self.n_kf
                 # bFIBA: whole-map VI BA with bias priors right after init
@@ -1216,10 +1391,21 @@ class SlamSystem:
             self._bg_push("cull_lm", self._cull_landmarks_slice)
             # VIBA1/VIBA2 (LocalMapping.cc:238-295): re-estimate gravity,
             # biases and velocities once more map and motion accumulated
+            # (mono also refines the map scale: ScaleRefinement)
             if self.n_kf in (self._init_kf_count + 6, self._init_kf_count + 14):
                 with self.timer.span("mapping/imu_init"):
-                    self.ikf, self.gravity, _ = inertial.initialize_imu(
-                        self.ms, self.ikf, self.n_kf, self.gravity, self.R_cb, self.t_cb)
+                    ikf2, g2, s = inertial.initialize_imu(
+                        self.ms, self.ikf, self.n_kf, self.gravity, self.R_cb, self.t_cb,
+                        estimate_scale=is_mono)
+                if not is_mono:
+                    self.ikf, self.gravity = ikf2, g2
+                else:
+                    # the map is metric already: a refinement far from 1 is
+                    # noise, and the gauge stays
+                    s_host = float(s)
+                    if 0.5 < s_host < 2.0:
+                        self.ikf, self.gravity = ikf2, g2
+                        self._apply_map_scale(s, s_host)
             self._bg_push("loop", self._maybe_close_loop)
         # the Atlas merge across shelved maps (MergeLocal2 for inertial maps,
         # LoopClosing.cc:1837), whether or not this map's IMU is initialized
@@ -1227,6 +1413,37 @@ class SlamSystem:
             self._bg_drop(("try_merge",))
             self._bg_push("try_merge", functools.partial(map_merging.try_merge, self))
         self._bg_backpressure()
+
+    def _apply_map_scale(self, s, s_host: float) -> None:
+        """Re-gauge the map and the live pose by the VI-solved metric scale
+        ``s`` (a 0-d tensor; ``s_host`` its value, read once by the caller;
+        Map::ApplyScaledRotation's scale part, ``Map.cc:289``). The active
+        map's recorded trajectory shares the old gauge and is re-gauged too
+        (the reference gets this by storing frame poses relative to their
+        keyframe, ``System.cc:503``)."""
+        self.ms = msx.apply_scale(self.ms, s)
+        self.t_cw = self.t_cw * s
+        self.vel_t = self.vel_t * s
+        gen = self._map_gen
+        self.trajectory = [
+            (t, g, kf, R_rel, None if t_rel is None else t_rel * s_host, R_abs, t_abs * s_host)
+            if g == gen else (t, g, kf, R_rel, t_rel, R_abs, t_abs)
+            for (t, g, kf, R_rel, t_rel, R_abs, t_abs) in self.trajectory
+        ]
+
+    def _triangulate_new_points(self, kf_idx: int) -> None:
+        """Monocular keyframes have no stereo depth: new points come from
+        triangulation against the top-5 covisible neighbours, best-parallax
+        pick (CreateNewMapPoints)."""
+        cam, orb = self.cfg.camera, self.cfg.orb
+        feat_b, X_w, want, nb = tracking.triangulate_with_neighbor(
+            self.ms, kf_idx, self.cam_params, w=cam.width, h=cam.height, scale=orb.scale_factor,
+            n_levels=orb.n_levels, cam_model=self.cam_model, far_dist=cam.th_far_points,
+        )
+        self.ms = tracking.add_triangulated_landmarks(
+            self.ms, kf_idx, nb, torch.where(want, feat_b, -1), X_w, want, self.cam_params,
+            scale=orb.scale_factor, n_levels=orb.n_levels,
+        )
 
     #: the window of one dense-Schur slice of the post-init FullInertialBA
     #: (bFIBA), and of the inertial GBA sweep
@@ -1453,7 +1670,8 @@ class SlamSystem:
         refined against each new keyframe and accepted after enough
         confirmations; a consistent BoW streak verifies its candidate and
         up to two alternates. An accepted loop passes the drift gate, is
-        corrected (SE(3) essential graph), followed by duplicate fusion of
+        corrected (essential graph: SE(3) stereo, Sim(3) monocular, 4-DoF
+        inertial), followed by duplicate fusion of
         the recent landmarks, the re-basing of the live pose and four GBA
         slices."""
         if not self.enable_loop_closing or self.localization_only:
@@ -1467,15 +1685,22 @@ class SlamSystem:
         else:
             kf_idx, cand = self.loop_closer.detect_async(self.ms, self.n_kf - 1, self.n_kf)
         # the essential graph per sensor (LoopClosing.cc:1239-1245): inertial
-        # maps 4-DoF (gravity stays observable), stereo maps SE(3)
-        mode, gravity = ("4dof", self.gravity) if self.cfg.is_inertial else ("se3", None)
+        # maps 4-DoF (gravity stays observable), monocular maps Sim(3)
+        # (scale drifts), stereo maps SE(3)
+        if self.cfg.is_inertial:
+            mode, gravity = "4dof", self.gravity
+        elif self.cfg.sensor == SensorType.MONOCULAR:
+            mode, gravity = "sim3", None
+        else:
+            mode, gravity = "se3", None
+        fix_scale = mode != "sim3"
         lc = self.loop_closer
         ok = False
         if cand < 0:
             if lc._hyp is not None:
                 acc, c_h, R_d, t_d, s_d = lc.hypothesis_step(
                     self.ms, self.n_kf - 1, self.cam_params, cam_model=self.cam_model,
-                    fix_scale=True,
+                    fix_scale=fix_scale,
                 )
                 if not acc:
                     return
@@ -1485,7 +1710,7 @@ class SlamSystem:
                 # a fresh unconfirmed BoW hit seeds a hypothesis with a full
                 # geometric verification
                 ok_seed, R_s, t_s, s_s = lc.verify(
-                    self.ms, kf_idx, lc._last_cand, self._split_key(), fix_scale=True,
+                    self.ms, kf_idx, lc._last_cand, self._split_key(), fix_scale=fix_scale,
                     cam_params=self.cam_params, cam_model=self.cam_model,
                 )
                 if ok_seed:
@@ -1496,7 +1721,7 @@ class SlamSystem:
         if not ok:
             for c in [cand] + [c for c in lc._alternates if c >= 0][:2]:
                 ok, R_d, t_d, s_d = lc.verify(
-                    self.ms, kf_idx, c, self._split_key(), fix_scale=True,
+                    self.ms, kf_idx, c, self._split_key(), fix_scale=fix_scale,
                     cam_params=self.cam_params, cam_model=self.cam_model,
                 )
                 if ok:
@@ -1541,6 +1766,8 @@ class SlamSystem:
 
     def _insert_keyframe(self, frame: frontend.Frame, t: float, lm_feat) -> None:
         self._insert_keyframe_visual_only(frame, t, lm_feat)
+        if self.cfg.sensor == SensorType.MONOCULAR and self.n_kf >= 3:
+            self._triangulate_new_points(self.n_kf - 1)
         if self.n_kf >= 2:
             # every per-KF mapping job is a bounded slice on the background
             # FIFO, one dispatched ahead of each subsequent frame

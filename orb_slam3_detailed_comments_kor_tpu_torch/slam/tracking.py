@@ -1,15 +1,20 @@
-"""Stereo tracking step: project-match-optimize, keyframe insertion, and
-the mapping steps the SLAM loop runs between frames.
+"""Tracking steps: project-match-optimize, keyframe insertion, and the
+mapping steps the SLAM loop runs between frames.
 
 Port of ``TrackResult``, ``_project_landmarks``, ``track_frame``,
 ``update_landmark_stats``, ``make_keyframe``, ``full_frame_step``,
-``local_ba_step``, ``cull_landmarks`` and ``cull_redundant_keyframes``
-from ``orb_slam3_detailed_comments_kor_tpu/slam/tracking.py``.
+``_finish_step``, ``full_mono_step``, ``local_ba_step``,
+``add_triangulated_landmarks``, ``triangulate_with_neighbor``,
+``cull_landmarks`` and ``cull_redundant_keyframes`` from
+``orb_slam3_detailed_comments_kor_tpu/slam/tracking.py``.
 
-``full_frame_step`` is the main path: stereo ORB front-end, a three-stage
+``full_frame_step`` (stereo) and ``full_mono_step`` (monocular, with the
+IMU pose prior) are the per-frame paths: the ORB front-end, a three-stage
 project → match → motion-only BA, landmark stats and the motion model.
 Everything stays on the device with static shapes and ``torch.where``
-selection; the caller's only host read is ``n_inliers``.
+selection; the caller's only host read is ``n_inliers``. The monocular
+mapping steps (neighbour triangulation and landmark creation) read
+nothing back either.
 """
 
 from __future__ import annotations
@@ -19,7 +24,8 @@ from typing import NamedTuple
 import torch
 
 from orb_slam3_detailed_comments_kor_tpu_torch.models import camera as cam_mod
-from orb_slam3_detailed_comments_kor_tpu_torch.ops import matching
+from orb_slam3_detailed_comments_kor_tpu_torch.ops import matching, twoview
+from orb_slam3_detailed_comments_kor_tpu_torch.ops import orb as orb_ops
 from orb_slam3_detailed_comments_kor_tpu_torch.optim import ba, factors
 from orb_slam3_detailed_comments_kor_tpu_torch.slam import frontend as fe
 from orb_slam3_detailed_comments_kor_tpu_torch.slam import map_state as msx
@@ -201,9 +207,15 @@ def full_frame_step(
         ms, frame, R_pred, t_pred, cam_params, bf, w, h, scale, n_levels,
         far_dist=far_dist,
     )
+    return _finish_step(ms, frame, tr, R_last, t_last, vel_R, vel_t, min_inliers)
+
+
+def _finish_step(ms, frame, tr, R_last, t_last, vel_R, vel_t, min_inliers):
+    """The per-frame steps' shared epilogue: landmark stats, then the
+    motion model vel = T_new ∘ inv(T_last) and the pose, both frozen when
+    tracking failed (resolved on the device)."""
     ok = tr.n_inliers >= min_inliers
     ms = update_landmark_stats(ms, tr)
-    # motion model: vel = T_new ∘ inv(T_last); frozen when tracking failed
     Ri, ti = lie.se3_inverse(R_last, t_last)
     vR_new, vt_new = lie.se3_compose(tr.R_cw, tr.t_cw, Ri, ti)
     vel_R = torch.where(ok, vR_new, vel_R)
@@ -211,6 +223,47 @@ def full_frame_step(
     R_out = torch.where(ok, tr.R_cw, R_last)
     t_out = torch.where(ok, tr.t_cw, t_last)
     return ms, frame, tr, R_out, t_out, vel_R, vel_t, ok
+
+
+def full_mono_step(
+    ms: msx.MapState,
+    img: torch.Tensor,
+    R_last: torch.Tensor,
+    t_last: torch.Tensor,
+    vel_R: torch.Tensor,
+    vel_t: torch.Tensor,
+    has_vel: torch.Tensor,
+    cam_params: torch.Tensor,
+    prior,
+    bf: float = 0.0,
+    w: int = 752,
+    h: int = 480,
+    scale: float = 1.2,
+    n_levels: int = 8,
+    n_features: int = 1200,
+    cell: int = 32,
+    min_inliers: int = 10,
+    cam_model: str = "pinhole",
+    dist=None,
+    far_dist: float = 0.0,
+):
+    """The monocular (and mono-inertial) per-frame path: mono ORB
+    front-end, the three-stage track, stats and the motion model.
+    ``prior`` is an always-present (R_p, t_p, info_R, info_t) tuple: zero
+    informations disable the IMU-predicted pose pull (the fused analog of
+    PoseInertialOptimizationLastKeyFrame, ``Optimizer.cc:6697``)."""
+    frame = fe.process_mono(
+        img, n_features=n_features, n_levels=n_levels, scale=scale, cell=cell,
+        dist=dist, cam_params=cam_params,
+    )
+    R_pred0, t_pred0 = lie.se3_compose(vel_R, vel_t, R_last, t_last)
+    R_pred = torch.where(has_vel, R_pred0, R_last)
+    t_pred = torch.where(has_vel, t_pred0, t_last)
+    tr = track_frame(
+        ms, frame, R_pred, t_pred, cam_params, bf, w, h, scale, n_levels,
+        prior=prior, cam_model=cam_model, far_dist=far_dist,
+    )
+    return _finish_step(ms, frame, tr, R_last, t_last, vel_R, vel_t, min_inliers)
 
 
 def update_landmark_stats(
@@ -422,6 +475,149 @@ def local_ba_step(
     new_rows = torch.where(egregious2d & allow_drop, -1, obs_rows)
     obs_lm[win] = torch.where(win_valid[:, None], new_rows, obs_rows)
     return ms._replace(kf_R_cw=kf_R_cw, kf_t_cw=kf_t_cw, lm_pos=lm_pos, obs_lm=obs_lm)
+
+
+def add_triangulated_landmarks(
+    ms: msx.MapState,
+    kf_a: int,
+    kf_b,
+    feat_b: torch.Tensor,
+    X_w: torch.Tensor,
+    want: torch.Tensor,
+    cam_params: torch.Tensor,
+    scale: float = 1.2,
+    n_levels: int = 8,
+) -> msx.MapState:
+    """Landmarks from triangulated pairs between keyframe ``kf_a`` (a
+    Python int) and its partners (LocalMapping::CreateNewMapPoints,
+    ``LocalMapping.cc:492``; also the monocular initialization).
+
+    Arrays are indexed by kf_a's feature slots: feat_b [N] the matching
+    feature in the partner (-1 none), X_w [N,3] world positions, want [N]
+    the gate. ``kf_b`` is one partner (an int: two-view initialization) or
+    one per feature ([N] tensor: the multi-neighbour triangulation). The
+    partners' observation rows are written as the reference's CPU scatter
+    writes them (the last write to a slot wins, ``scatter_last``).
+    """
+    N, L, K = ms.N, ms.L, ms.K
+    dev = X_w.device
+    if not isinstance(kf_b, torch.Tensor):
+        kf_b = torch.full((), kf_b, dtype=torch.int32, device=dev)
+    kf_b = kf_b.expand(feat_b.shape)
+    slots = msx.allocate_slots(~ms.lm_valid, want)
+    got = slots >= 0
+    sl = torch.where(got, slots, L)
+
+    R_a, t_a = ms.kf_R_cw[kf_a], ms.kf_t_cw[kf_a]
+    Ow = -R_a.T @ t_a
+    delta = X_w - Ow
+    dist = torch.linalg.vector_norm(delta, dim=-1)
+    normal = delta / torch.clamp(dist[:, None], min=1e-6)
+    mind, maxd = msx.landmark_scale_band(dist, ms.kf_level[kf_a], scale, n_levels)
+
+    put = lambda arr, vals: msx.scatter_drop(arr, sl, vals)
+    twos = torch.full((N,), 2, dtype=torch.int32, device=dev)
+    ms = ms._replace(
+        lm_pos=put(ms.lm_pos, X_w),
+        lm_valid=put(ms.lm_valid, True),
+        lm_desc=put(ms.lm_desc, ms.kf_desc[kf_a]),
+        lm_normal=put(ms.lm_normal, normal),
+        lm_min_dist=put(ms.lm_min_dist, mind),
+        lm_max_dist=put(ms.lm_max_dist, maxd),
+        lm_found=put(ms.lm_found, twos),
+        lm_visible=put(ms.lm_visible, twos),
+        lm_first_kf=put(ms.lm_first_kf, torch.full((N,), kf_a, dtype=torch.int32, device=dev)),
+    )
+    # observation rows: kf_a at its own feature slots, each feature's
+    # partner at the matched slot (invalid pairs park past the table)
+    obs_lm = ms.obs_lm.clone()
+    obs_lm[kf_a] = torch.where(got, slots, ms.obs_lm[kf_a])
+    ok_b = got & (feat_b >= 0) & (kf_b >= 0)
+    flat = torch.where(ok_b, kf_b.to(torch.int64) * N + feat_b, K * N)
+    obs_lm = msx.scatter_last(obs_lm.view(-1), flat, slots).view(K, N)
+    return ms._replace(obs_lm=obs_lm)
+
+
+def triangulate_with_neighbor(
+    ms: msx.MapState,
+    kf_idx: int,
+    cam_params: torch.Tensor,
+    w: int,
+    h: int,
+    scale: float = 1.2,
+    n_levels: int = 8,
+    max_reproj_px: float = 2.0,
+    min_parallax_cos: float = 0.99998,
+    cam_model: str = "pinhole",
+    n_neighbors: int = 5,
+    far_dist: float = 0.0,
+):
+    """Mapping-time triangulation of keyframe ``kf_idx``'s unmatched
+    features against its ``n_neighbors`` most covisible keyframes
+    (``LocalMapping::CreateNewMapPoints``, ``src/LocalMapping.cc:492-954``;
+    ``SearchForTriangulation``, ``src/ORBmatcher.cc:965``): per neighbour a
+    ratio-test match, midpoint triangulation and the depth, reprojection
+    and parallax gates; each feature keeps the passing neighbour with the
+    lowest cos-parallax (the strongest baseline).
+
+    Returns (feat_b [N], X_w [N,3], want [N], nb_of_feat [N]): the
+    matched feature, the world point, the gate and the chosen neighbour
+    per feature (-1 where none passes).
+    """
+    N, K = ms.N, ms.K
+    dev = ms.kf_xy.device
+    kk = torch.arange(K, device=dev)
+    cov = msx.covisibility_weights(ms, kk[kf_idx:kf_idx + 1])[0]
+    cov = torch.where((kk == kf_idx) | ~ms.kf_valid, -1, cov)
+    nbs = _top_k_stable(cov, n_neighbors)  # [Nb]
+    nb_ok = cov[nbs] > 0
+
+    da = orb_ops.unpack_descriptors(ms.kf_desc[kf_idx])
+    va = ms.kf_feat_valid[kf_idx] & (ms.obs_lm[kf_idx] < 0)
+    xy_a = ms.kf_xy[kf_idx]
+    rays_a = cam_mod.unproject(cam_params, xy_a, cam_model)
+    Rai, tai = lie.se3_inverse(ms.kf_R_cw[kf_idx], ms.kf_t_cw[kf_idx])
+    sigma_a = scale ** ms.kf_level[kf_idx].to(torch.float32)
+
+    # the neighbours' rows, gathered once; one ratio-test match each
+    desc_b = ms.kf_desc[nbs]
+    vb = ms.kf_feat_valid[nbs] & (ms.obs_lm[nbs] < 0) & nb_ok[:, None]
+    xy_b = ms.kf_xy[nbs]
+    matches = [matching.match_nn_ratio(da, orb_ops.unpack_descriptors(desc_b[i]), va, vb[i],
+                                       max_dist=50, ratio=0.8) for i in range(n_neighbors)]
+    idx = torch.stack([m.idx for m in matches])      # [Nb,N]
+    mvalid = torch.stack([m.valid for m in matches])
+    fb = torch.clamp(idx, min=0).to(torch.int64)
+    xy_bf = torch.gather(xy_b, 1, fb[..., None].expand(-1, -1, 2))
+    rays_b = cam_mod.unproject(cam_params, xy_bf, cam_model)
+    R_ba, t_ba = lie.se3_compose(ms.kf_R_cw[nbs], ms.kf_t_cw[nbs], Rai, tai)
+    X_a, dep_a, dep_b = twoview.triangulate_midpoint(R_ba, t_ba, rays_a, rays_b)
+    uv_a = cam_mod.project(cam_params, X_a, cam_model)
+    X_b = X_a @ R_ba.transpose(-1, -2) + t_ba[:, None, :]
+    uv_b = cam_mod.project(cam_params, X_b, cam_model)
+    err_a = torch.linalg.vector_norm(uv_a - xy_a, dim=-1)
+    err_b = torch.linalg.vector_norm(uv_b - xy_bf, dim=-1)
+    cospar = twoview._parallax_cos(R_ba, t_ba, X_a)
+    good = (
+        mvalid & nb_ok[:, None]
+        & (dep_a > 0.05) & (dep_b > 0.05)
+        & (err_a < max_reproj_px * sigma_a)
+        & (err_b < max_reproj_px * sigma_a)
+        & (cospar < min_parallax_cos)
+    )
+    if far_dist > 0.0:
+        # thFarPoints triangulation gate (LocalMapping.cc:923)
+        good = good & (dep_a < far_dist) & (dep_b < far_dist)
+    feat_b_n = torch.where(mvalid, idx, -1)
+
+    # per feature: the passing neighbour with the LOWEST cos-parallax
+    pick = torch.argmin(torch.where(good, cospar, float("inf")), dim=0)[None]  # [1,N]
+    want = torch.gather(good, 0, pick)[0]
+    feat_b = torch.where(want, torch.gather(feat_b_n, 0, pick)[0], -1)
+    X_a_sel = torch.gather(X_a, 0, pick[..., None].expand(1, N, 3))[0]
+    nb_of_feat = torch.where(want, nbs[pick[0]].to(torch.int32), -1)
+    X_w = X_a_sel @ Rai.T + tai
+    return feat_b, X_w, want, nb_of_feat
 
 
 def _observer_counts(obs_lm, ok, L):

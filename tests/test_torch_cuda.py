@@ -21,7 +21,10 @@ same bits twice on the card; and the small stereo-inertial pass
 (``chip_smoke.si_config(small=True)``) on the card against the CPU (the
 same keyframes, IMU init and counters, poses within TRANS_TOL / ROT_TOL,
 gravity within 1e-3 rad), with a VI local-BA slice that gives the same
-bits twice on the card.
+bits twice on the card; and the small monocular pass
+(``chip_smoke.mono_config(small=True)``) on the card against the CPU (the
+same initialization frame, keyframes and counters, centres within
+MONO_TRANS_TOL, rotations within ROT_TOL).
 """
 
 import pytest
@@ -278,3 +281,23 @@ def test_vi_local_ba_slice_is_deterministic(dev):
                     (ms_b.kf_R_cw, ms_b.kf_t_cw, ms_b.lm_pos, ikf_b.vel, ikf_b.bg, ikf_b.ba, cost_b)):
         assert torch.equal(a, b)
     assert not torch.equal(ms_a.kf_t_cw, slam.ms.kf_t_cw)  # the slice moved the window
+
+
+def test_small_mono_pass_card_matches_cpu(dev):
+    # the small monocular pass (chip_smoke.mono_config(small=True), the CPU
+    # test's 20 strafe frames) on the card and on the CPU: the same
+    # initialization frame, keyframes and counters; camera centres within
+    # MONO_TRANS_TOL (in the map's gauge) and rotations within ROT_TOL
+    cpu = torch.device("cpu")
+    cfg = chip_smoke.mono_config(small=True)
+    sm = chip_smoke.SMALL_MONO
+    _, imgs = chip_smoke.render_mono_sequence(cfg, sm["frames"], cpu, speed=sm["speed"])
+    card = chip_smoke.run_mono(cfg, [m.to(dev) for m in imgs], dev)
+    host = chip_smoke.run_mono(cfg, imgs, cpu)
+    for s in (card[0], host[0]):
+        s.flush_decisions()
+    assert card[1] == host[1] and card[2] == host[2] and host[0].state == 1
+    assert card[0].stats == host[0].stats
+    d_c, d_r = chip_smoke.trajectory_diff(card[0].trajectory_arrays(), host[0].trajectory_arrays())
+    assert d_c.max() <= chip_smoke.MONO_TRANS_TOL and d_r.max() <= chip_smoke.ROT_TOL, (
+        d_c.round(5).tolist(), d_r.round(5).tolist())

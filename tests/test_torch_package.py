@@ -37,6 +37,8 @@ SLICE_MODULES = [
     "slam.checkpoint",
     # the stereo-inertial path
     "ops.imu", "optim.vi_ba", "optim.vi_init", "optim.vio", "slam.inertial",
+    # the monocular and monocular-inertial paths
+    "ops.twoview",
 ]
 
 
@@ -125,7 +127,11 @@ def test_entry_points_default_to_cuda(module, name):
      ("slam.system", "SlamSystem.activate_localization_mode"), ("slam.system", "SlamSystem._loc_vo_fallback"),
      ("slam.system", "SlamSystem.track_stereo_inertial"), ("slam.inertial", "local_vi_ba_step"),
      ("slam.inertial", "full_inertial_ba"), ("slam.inertial", "initialize_imu"), ("optim.vio", "vio_frame_step"),
-     ("optim.vi_ba", "vi_bundle_adjust"), ("slam.loop_closing", "LoopCloser.correct")],
+     ("optim.vi_ba", "vi_bundle_adjust"), ("slam.loop_closing", "LoopCloser.correct"),
+     ("slam.system", "SlamSystem.track_mono"), ("slam.system", "SlamSystem.track_mono_inertial"),
+     ("slam.frontend", "process_mono"), ("slam.tracking", "full_mono_step"),
+     ("slam.tracking", "triangulate_with_neighbor"), ("slam.tracking", "add_triangulated_landmarks"),
+     ("ops.twoview", "reconstruct_two_views_hf"), ("slam.map_state", "apply_scale")],
 )
 def test_entry_points_follow_their_inputs_device(module, name):
     """Entry points that work on a system's or a map's tensors take no
@@ -149,3 +155,30 @@ def test_loop_closing_on_by_default():
     assert slam.loop_closer.db_words.shape == (slam.ms.K, 2048)
     slam.enable_loop_closing = False  # a plain attribute: the caller may turn it off
     assert slam.enable_loop_closing is False
+
+
+@pytest.mark.parametrize("sensor", ["MONOCULAR", "IMU_MONOCULAR"])
+def test_monocular_systems_build_on_the_card_by_default(sensor):
+    """``SlamSystem(cfg)`` with a monocular sensor and a pinhole camera
+    builds, on the card unless the caller names another device, and
+    ``track_mono`` / ``track_mono_inertial`` run on the system's device."""
+    from orb_slam3_detailed_comments_kor_tpu_torch.slam.system import SlamSystem, TrackingState
+
+    assert torch.device(inspect.signature(SlamSystem).parameters["device"].default).type == "cuda"
+    slam = SlamSystem(tcfg.SLAMConfig(sensor=getattr(tcfg.SensorType, sensor)), device="cpu")
+    assert slam.state == TrackingState.NOT_INITIALIZED and slam.ms.kf_t_cw.device.type == "cpu"
+    assert slam.cfg.is_inertial == (sensor == "IMU_MONOCULAR")
+
+
+@pytest.mark.parametrize("case", ["rgbd", "fisheye", "rig"])
+def test_unported_configurations_raise(case):
+    """RGB-D, the KB8 fisheye and camera rigs are not ported: the system
+    refuses them."""
+    from orb_slam3_detailed_comments_kor_tpu_torch.slam.system import SlamSystem
+
+    cam = tcfg.CameraConfig()
+    cfg = {"rgbd": tcfg.SLAMConfig(sensor=tcfg.SensorType.RGBD),
+           "fisheye": tcfg.SLAMConfig(camera=dataclasses.replace(cam, model="kannala_brandt8")),
+           "rig": tcfg.SLAMConfig(camera=dataclasses.replace(cam, right_intrinsics=(1.0,) * 8))}[case]
+    with pytest.raises(NotImplementedError, match="not ported|no RGB-D"):
+        SlamSystem(cfg, device="cpu")
