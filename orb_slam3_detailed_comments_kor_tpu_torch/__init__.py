@@ -7,10 +7,13 @@ counterpart. Plain tensor code is PyTorch; the reference's three Pallas TPU
 kernels are CUDA C++ kernels for Hopper (``csrc/``), each beside a plain
 PyTorch version that the CPU path runs.
 
-It covers the stereo, stereo-inertial, monocular and monocular-inertial
-pinhole paths of ``slam.system.SlamSystem`` (tracking, local mapping,
-loop closing, the Atlas merge, checkpoints and localization mode); the
-RGB-D, fisheye and multi-device paths are not ported.
+It covers every sensor path of ``slam.system.SlamSystem`` (tracking,
+local mapping, loop closing, the Atlas merge, checkpoints and localization
+mode): stereo, stereo-inertial, monocular and monocular-inertial on the
+pinhole camera; RGB-D; and the Kannala-Brandt (KB8) fisheye, monocular or
+as a two-camera rig with its right-camera observation rows, with or
+without an IMU. Not ported: training a vocabulary online and the
+multi-device BA branches.
 
 The package imports torch and numpy only — never jax.
 """

@@ -1,8 +1,8 @@
 """Rectified stereo matching: row-banded Hamming + SAD subpixel refine.
 
 Port of ``compute_stereo_matches`` and ``_sad_refine_atlas`` from
-``orb_slam3_detailed_comments_kor_tpu/ops/stereo.py`` (padded-stack form
-with the extractor's left patches): each left feature takes the best right
+``orb_slam3_detailed_comments_kor_tpu/ops/stereo.py`` (the padded-stack
+form, with or without the extractor's left patches): each left feature takes the best right
 feature within a ±2σ row band, ±1 level and [0, maxD] disparity by Hamming
 distance (the ``masked_best2`` kernel), then an 11x11 SAD slide over ±5 px
 plus one Lucas-Kanade step refines the disparity at the feature's level,
@@ -48,14 +48,12 @@ def _sad_refine_atlas(
 ):
     """SAD + LK subpixel for all keypoints at once; level-local coords.
 
-    Left 11x11 windows are cropped from ``left_patches`` (the extractor's
-    keypoint-centred [K,48,45] patches); right strips are one
-    ``gather_patches`` call. ``atlas_l`` is unused on this path (the
-    reference reads it only without ``left_patches``). Returns
+    With ``left_patches`` (the extractor's keypoint-centred [K,48,45]
+    patches) the left 11x11 windows are cropped from them and the right
+    strips are one ``gather_patches`` call; without, both come from the
+    atlases by advanced indexing (plain torch). Returns
     (du [K], sad [K], xi [K]).
     """
-    if left_patches is None:
-        raise NotImplementedError("only the left_patches path is ported")
     win = 2 * _W + 1
     w_l = level_w[level]
     h_l = level_h[level]
@@ -67,9 +65,17 @@ def _sad_refine_atlas(
     )
     base = row_off[level] + yi  # atlas row of the kp
 
-    pc = orb_ops._PC
-    patch_l = left_patches[:, pc - _W:pc + _W + 1, pc - _W:pc + _W + 1]
-    strip_r = cuda_gather.gather_patches(atlas_r, base - _W, xri - _W - _L, win, win + 2 * _L)
+    if left_patches is not None:
+        pc = orb_ops._PC
+        patch_l = left_patches[:, pc - _W:pc + _W + 1, pc - _W:pc + _W + 1]
+        strip_r = cuda_gather.gather_patches(atlas_r, base - _W, xri - _W - _L, win, win + 2 * _L)
+    else:
+        dev = atlas_r.device
+        rows = (base[:, None, None] + torch.arange(-_W, _W + 1, device=dev)[None, :, None]).to(torch.int64)
+        dxl = torch.arange(-_W, _W + 1, device=dev)[None, None, :]
+        dxr = torch.arange(-_W - _L, _W + _L + 1, device=dev)[None, None, :]
+        patch_l = atlas_l[rows, (xi[:, None, None] + dxl).to(torch.int64)]    # [K,win,win]
+        strip_r = atlas_r[rows, (xri[:, None, None] + dxr).to(torch.int64)]  # [K,win,win+2L]
     patch_l_n = patch_l - patch_l[:, _W, _W][:, None, None]
     sads = []
     for i in range(2 * _L + 1):
@@ -132,7 +138,7 @@ def compute_stereo_matches(
 
     pyr_l / pyr_r: the padded level stacks [NL,Hp,Wp] from
     ``extract_orb_batch``; ``level_hw`` the true per-level shapes;
-    ``left_patches`` the extractor's left-view patches.
+    ``left_patches`` optionally the extractor's left-view patches.
     """
     n_levels = pyr_l.shape[0]
     lvl_hw = level_hw or pyr_ops.level_shapes(

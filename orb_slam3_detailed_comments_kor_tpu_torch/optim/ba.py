@@ -3,8 +3,10 @@
 Port of ``pose_optimization`` (with its IMU pose prior), ``BAResult``, ``_eval_weights``,
 ``_build_normal_blocks``, ``bundle_adjust``, ``_schur_matvec``, ``_pcg``
 and ``bundle_adjust_cg`` from
-``orb_slam3_detailed_comments_kor_tpu/optim/ba.py`` (the paths with no
-camera rig).
+``orb_slam3_detailed_comments_kor_tpu/optim/ba.py``. Each takes a camera
+model and a two-camera ``rig`` = (R_rl, t_rl, cam_params_r): rig
+observation tables carry one right-camera row per left row
+(``factors.with_rig_rows``).
 
 ``pose_optimization`` (``Optimizer::PoseOptimization`` analog) runs LM on
 one pose against fixed 3-D points, ``rounds`` x ``iters`` iterations with
@@ -70,10 +72,16 @@ def pose_optimization(
     iters: int = 10,
     prior=None,
     cam_model: str = "pinhole",
+    uv_r=None,
+    rig=None,
 ) -> PoseOptResult:
     """Optimize one pose against fixed points X [N,3], one observation each
     (uv/u_right/inv_sigma2/valid [N]). ``prior``: optional (R_p, t_p,
-    info_R, info_t), a whitened 6-DoF pull toward an IMU-predicted pose."""
+    info_R, info_t), a whitened 6-DoF pull toward an IMU-predicted pose.
+    ``uv_r`` [N,2] with ``rig``: each observation's right-camera pixel (x <
+    0 none), an independent mono residual through the rig extrinsic
+    (``EdgeSE3ProjectXYZOnlyPoseToBody``); the inliers reported are the
+    left rows'."""
     n = X.shape[0]
     dev = X.device
     obs = Observations(
@@ -84,13 +92,17 @@ def pose_optimization(
         inv_sigma2=inv_sigma2,
         valid=valid,
     )
-    delta2 = torch.where(u_right >= 0, CHI2_STEREO, CHI2_MONO)
+    if rig is not None:
+        obs = factors.with_rig_rows(obs, uv_r)
+        valid = obs.valid
+    inv_sigma2 = obs.inv_sigma2
+    delta2 = torch.where(obs.u_right >= 0, CHI2_STEREO, CHI2_MONO)
     eye6 = torch.eye(6, dtype=X.dtype, device=dev)
 
     def residual(R, t, active):
         return factors.reproj_residuals(
             R[None], t[None], X, obs._replace(valid=active), cam_params, bf,
-            cam_model,
+            cam_model, rig=rig,
         )
 
     def chi2_of(r):
@@ -133,7 +145,7 @@ def pose_optimization(
             w_h = factors.huber_weight(chi2, delta2) if use_huber else 1.0
             w = inv_sigma2 * w_h * active
             Jp, _ = factors.reproj_jacobians(
-                R[None], t[None], X, obs, cam_params, bf, cam_model
+                R[None], t[None], X, obs, cam_params, bf, cam_model, rig=rig
             )
             Jp = Jp * row_mask[:, :, None]
             # H = Σ w·JᵀJ and b = -Σ w·Jᵀr as two [6, 3·O] matmuls
@@ -160,6 +172,10 @@ def pose_optimization(
         r1, _, dok1 = residual(R, t, valid)
         inlier = (chi2_of(r1) <= delta2) & valid & dok1
     R = lie.project_to_so3(R)
+    if rig is not None:
+        # the left rows' inliers: the callers' thresholds and landmark
+        # bookkeeping count left-frame features
+        inlier = inlier[:n]
     return PoseOptResult(R, t, inlier, torch.sum(inlier))
 
 
@@ -194,14 +210,12 @@ def _build_normal_blocks(R_cw, t_cw, X, obs, cam_params, bf, w_total, row_mask,
     atomics land in no fixed order) they are segmented scans, the same adds
     in the same order on every run.
     """
-    if rig is not None:
-        raise NotImplementedError("camera rigs are not ported")
     K = R_cw.shape[0]
     L = X.shape[0]
-    Jp, Jl = factors.reproj_jacobians(R_cw, t_cw, X, obs, cam_params, bf, cam_model)
+    Jp, Jl = factors.reproj_jacobians(R_cw, t_cw, X, obs, cam_params, bf, cam_model, rig=rig)
     Jp = Jp * row_mask[:, :, None]
     Jl = Jl * row_mask[:, :, None]
-    r, _, _ = factors.reproj_residuals(R_cw, t_cw, X, obs, cam_params, bf, cam_model)
+    r, _, _ = factors.reproj_residuals(R_cw, t_cw, X, obs, cam_params, bf, cam_model, rig=rig)
     JpT, JlT = Jp.transpose(1, 2), Jl.transpose(1, 2)
     w3 = w_total[:, None, None]
     rows = (w3 * (JpT @ Jp), w3 * (JlT @ Jl), -w_total[:, None] * (JpT @ r[..., None])[..., 0],
@@ -248,8 +262,6 @@ def bundle_adjust(
     camera system is dense ([6K, 6K]) and solved by LU with Jacobi
     scaling, as the reference does.
     """
-    if rig is not None:
-        raise NotImplementedError("camera rigs are not ported")
     K = R_cw.shape[0]
     L = X.shape[0]
     dev, dt_ = X.device, X.dtype
@@ -262,7 +274,7 @@ def bundle_adjust(
     fp = fixed_pose[:, None].expand(K, 6).reshape(-1)
 
     def total_cost(R, t, Xc):
-        r, _, dok = factors.reproj_residuals(R, t, Xc, obs, cam_params, bf, cam_model)
+        r, _, dok = factors.reproj_residuals(R, t, Xc, obs, cam_params, bf, cam_model, rig=rig)
         chi2 = torch.sum(r * r, dim=-1) * obs.inv_sigma2
         c = _robust_cost(chi2, delta2) if use_huber else chi2
         return torch.sum(c * (obs.valid & dok)), chi2
@@ -272,13 +284,13 @@ def bundle_adjust(
     best_cost, _ = total_cost(R, t, Xc)
     segs = _normal_segments(obs, K, L)
     for _ in range(iters):
-        r, row_mask, depth_ok = factors.reproj_residuals(R, t, Xc, obs, cam_params, bf, cam_model)
+        r, row_mask, depth_ok = factors.reproj_residuals(R, t, Xc, obs, cam_params, bf, cam_model, rig=rig)
         _, w_h, _ = _eval_weights(r, obs, use_huber)
         w = obs.inv_sigma2 * w_h * (obs.valid & depth_ok)
         # freeze contributions of fixed variables by zeroing their Jacobians
         Hpp, Hll, bp, bl, Wpl = _build_normal_blocks(
             R, t, Xc, obs._replace(valid=obs.valid & depth_ok),
-            cam_params, bf, w, row_mask, cam_model, segs=segs,
+            cam_params, bf, w, row_mask, cam_model, rig=rig, segs=segs,
         )
         bp = bp * free_p[:, None]
         bl = bl * free_l[:, None]
@@ -442,8 +454,6 @@ def bundle_adjust_cg(
     instead of O(K·L·18). The per-observation blocks are summed per
     keyframe and per landmark with ``_segment_sum`` (deterministic).
     """
-    if rig is not None:
-        raise NotImplementedError("camera rigs are not ported")
     K = R_cw.shape[0]
     L = X.shape[0]
     dev, dt_ = X.device, X.dtype
@@ -456,7 +466,7 @@ def bundle_adjust_cg(
     seg_kf, seg_lm = _segments(kf, K), _segments(lm, L)
 
     def total_cost(R, t, Xc):
-        r, _, dok = factors.reproj_residuals(R, t, Xc, obs, cam_params, bf, cam_model)
+        r, _, dok = factors.reproj_residuals(R, t, Xc, obs, cam_params, bf, cam_model, rig=rig)
         chi2 = torch.sum(r * r, dim=-1) * obs.inv_sigma2
         c = _robust_cost(chi2, delta2) if use_huber else chi2
         return torch.sum(c * (obs.valid & dok)), chi2
@@ -465,10 +475,10 @@ def bundle_adjust_cg(
     lam = torch.full((), 1e-4, dtype=dt_, device=dev)  # no host copy
     best_cost, _ = total_cost(R, t, Xc)
     for _ in range(iters):
-        r, row_mask, depth_ok = factors.reproj_residuals(R, t, Xc, obs, cam_params, bf, cam_model)
+        r, row_mask, depth_ok = factors.reproj_residuals(R, t, Xc, obs, cam_params, bf, cam_model, rig=rig)
         _, w_h, _ = _eval_weights(r, obs, use_huber)
         w = obs.inv_sigma2 * w_h * (obs.valid & depth_ok)
-        Jp, Jl = factors.reproj_jacobians(R, t, Xc, obs, cam_params, bf, cam_model)
+        Jp, Jl = factors.reproj_jacobians(R, t, Xc, obs, cam_params, bf, cam_model, rig=rig)
         Jp = Jp * row_mask[:, :, None]
         Jl = Jl * row_mask[:, :, None]
         JpT, JlT = Jp.transpose(1, 2), Jl.transpose(1, 2)

@@ -190,18 +190,18 @@ def _camera_pose(st, R_cb, t_cb):
     return R_cb @ st.R_bw, st.t_bw @ R_cb.T + t_cb
 
 
-def _visual_rows(st, Xc, obs, cam_params, R_cb, t_cb, bf, delta2, cam_model):
+def _visual_rows(st, Xc, obs, cam_params, R_cb, t_cb, bf, delta2, cam_model, rig=None):
     """Residuals, IRLS weights and the per-observation Jacobian blocks with
     respect to the body-pose tangent (∂pc/∂ξ_b = R_cb [I | −hat(pb)]) and
-    the landmark."""
+    the landmark; a ``rig``'s right rows project through its extrinsic."""
     R_cw, t_cw = _camera_pose(st, R_cb, t_cb)
-    r, row_mask, depth_ok = factors.reproj_residuals(R_cw, t_cw, Xc, obs, cam_params, bf, cam_model)
+    r, row_mask, depth_ok = factors.reproj_residuals(R_cw, t_cw, Xc, obs, cam_params, bf, cam_model, rig=rig)
     chi2 = torch.sum(r * r, dim=-1) * obs.inv_sigma2
     w = obs.inv_sigma2 * factors.huber_weight(chi2, delta2) * (obs.valid & depth_ok)
     Rk = st.R_bw[obs.kf]
     pb = _mv(Rk, Xc[obs.lm]) + st.t_bw[obs.kf]
     pc = pb @ R_cb.T + t_cb
-    _, Jproj = factors.project_with_jac(cam_params, pc, bf, cam_model)
+    _, Jproj, _ = factors._rig_select(obs, pc, cam_params, bf, cam_model, rig)
     eye = torch.eye(3, dtype=pb.dtype, device=pb.device).expand(pb.shape[0], 3, 3)
     dpc_dxi = R_cb @ torch.cat([eye, -lie.hat(pb)], dim=-1)  # [O,3,6]
     Jp = -(Jproj @ dpc_dxi) * row_mask[:, :, None]
@@ -210,11 +210,11 @@ def _visual_rows(st, Xc, obs, cam_params, R_cb, t_cb, bf, delta2, cam_model):
 
 
 def _costs(st, Xc, obs, edges, cam_params, R_cb, t_cb, bf, gravity, delta2, cam_model,
-           gyro_walk_info, acc_walk_info, prior_bg_info, prior_ba_info, bg0, ba0, free_kf):
+           gyro_walk_info, acc_walk_info, prior_bg_info, prior_ba_info, bg0, ba0, free_kf, rig=None):
     """Total cost: robust reprojection + inertial + bias random walk + bias
     priors."""
     R_cw, t_cw = _camera_pose(st, R_cb, t_cb)
-    r, _, dok = factors.reproj_residuals(R_cw, t_cw, Xc, obs, cam_params, bf, cam_model)
+    r, _, dok = factors.reproj_residuals(R_cw, t_cw, Xc, obs, cam_params, bf, cam_model, rig=rig)
     chi2 = torch.sum(r * r, dim=-1) * obs.inv_sigma2
     c_vis = torch.sum(ba._robust_cost(chi2, delta2) * (obs.valid & dok))
     r_in = inertial_residuals(st, edges, gravity)
@@ -259,8 +259,6 @@ def vi_bundle_adjust(
     ``prior_ba_info`` pull each free keyframe's bias toward its value at call
     time (the bFIBA priors, ``Optimizer.cc:397``). Returns (VIState, X,
     costs [iters+1])."""
-    if rig is not None:
-        raise NotImplementedError("camera rigs are not ported")
     K, L, P = st.R_bw.shape[0], X.shape[0], 15
     KP = K * P
     dev, dt_ = X.device, X.dtype
@@ -276,7 +274,7 @@ def vi_bundle_adjust(
         _costs, obs=obs, edges=edges, cam_params=cam_params, R_cb=R_cb, t_cb=t_cb, bf=bf,
         gravity=gravity, delta2=delta2, cam_model=cam_model, gyro_walk_info=gyro_walk_info,
         acc_walk_info=acc_walk_info, prior_bg_info=prior_bg_info, prior_ba_info=prior_ba_info,
-        bg0=bg0, ba0=ba0, free_kf=free_kf)
+        bg0=bg0, ba0=ba0, free_kf=free_kf, rig=rig)
 
     # ---- the solve's fixed sum layouts ----------------------------------
     sum_kf, sum_lm, sum_pl = _summer(kf, K), _summer(lm, L), _summer(kf * L + lm, K * L)
@@ -305,7 +303,7 @@ def vi_bundle_adjust(
     costs = [best]
     for _ in range(iters):
         # ---- visual part, lifted into the 15-dim system -----------------
-        r, w, Jp, Jl = _visual_rows(stc, Xc, obs, cam_params, R_cb, t_cb, bf, delta2, cam_model)
+        r, w, Jp, Jl = _visual_rows(stc, Xc, obs, cam_params, R_cb, t_cb, bf, delta2, cam_model, rig)
         Jp = Jp * free_kf[kf][:, None, None]
         Jl = Jl * free_l[lm][:, None, None]
         JpT, JlT = Jp.transpose(1, 2), Jl.transpose(1, 2)
@@ -380,8 +378,6 @@ def vi_bundle_adjust_cg(
     matrix-free Schur landmark elimination and block-Jacobi PCG on the
     [K,15] reduced system, so K and L can be map-capacity sized (memory
     O(obs + E·576 + K·225)). Returns (VIState, X, costs [iters+1])."""
-    if rig is not None:
-        raise NotImplementedError("camera rigs are not ported")
     K, L, P = st.R_bw.shape[0], X.shape[0], 15
     dev, dt_ = X.device, X.dtype
     eye3 = torch.eye(3, dtype=dt_, device=dev)
@@ -398,7 +394,7 @@ def vi_bundle_adjust_cg(
         _costs, obs=obs, edges=edges, cam_params=cam_params, R_cb=R_cb, t_cb=t_cb, bf=bf,
         gravity=gravity, delta2=delta2, cam_model=cam_model, gyro_walk_info=gyro_walk_info,
         acc_walk_info=acc_walk_info, prior_bg_info=prior_bg_info, prior_ba_info=prior_ba_info,
-        bg0=bg0, ba0=ba0, free_kf=free_kf)
+        bg0=bg0, ba0=ba0, free_kf=free_kf, rig=rig)
     sum_kf, sum_lm = _summer(kf, K), _summer(lm, L)
     sum_i, sum_j = _summer(ei, K), _summer(ej, K)
     is_j, _ = _l24(dev)
@@ -424,7 +420,7 @@ def vi_bundle_adjust_cg(
     costs = [best]
     for _ in range(iters):
         # ---- visual blocks (body-pose tangent, dims 0:6) ----------------
-        r, w, Jp, Jl = _visual_rows(stc, Xc, obs, cam_params, R_cb, t_cb, bf, delta2, cam_model)
+        r, w, Jp, Jl = _visual_rows(stc, Xc, obs, cam_params, R_cb, t_cb, bf, delta2, cam_model, rig)
         JpT, JlT = Jp.transpose(1, 2), Jl.transpose(1, 2)
         w3 = w[:, None, None]
         Hpp6 = sum_kf(w3 * (JpT @ Jp))

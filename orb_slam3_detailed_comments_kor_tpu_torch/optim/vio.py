@@ -128,14 +128,18 @@ def frame_vi_optimize(prior: VioPrior, pre: imu_ops.Preintegrated, cur0: VioStat
 
     X [M,3] matched map points; uv/u_right/inv_sigma2/valid [M] their
     measurements. The previous state and its prior live in ``prior``;
-    ``pre`` is the preintegration previous→current."""
-    if rig is not None:
-        raise NotImplementedError("camera rigs are not ported")
+    ``pre`` is the preintegration previous→current. ``uv_r`` [M,2] with a
+    ``rig``: the right-camera rows; the inliers returned are the left
+    rows', the count covers both."""
     M = X.shape[0]
     dev, dt_ = X.device, X.dtype
     obs = Observations(kf=torch.zeros((M,), dtype=torch.int64, device=dev),
                        lm=torch.arange(M, device=dev), uv=uv, u_right=u_right,
                        inv_sigma2=inv_sigma2, valid=valid)
+    Xo = X
+    if rig is not None:
+        obs = factors.with_rig_rows(obs, uv_r)
+        Xo = X[obs.lm]
     delta2 = torch.where(obs.u_right >= 0, CHI2_STEREO, CHI2_MONO)
     eye9 = torch.eye(9, dtype=dt_, device=dev)
     eye15 = torch.eye(15, dtype=dt_, device=dev)
@@ -147,7 +151,7 @@ def frame_vi_optimize(prior: VioPrior, pre: imu_ops.Preintegrated, cur0: VioStat
     dtc = torch.clamp(pre.dt, min=1e-3)
     w_rw = torch.cat([torch.sqrt(gyro_walk_info / dtc).expand(3), torch.sqrt(acc_walk_info / dtc).expand(3)])
     consts = (prior.state, Lp, L9, pre, gravity, w_rw)
-    eye3 = torch.eye(3, dtype=dt_, device=dev).expand(M, 3, 3)
+    eye3 = torch.eye(3, dtype=dt_, device=dev).expand(obs.n, 3, 3)
 
     def vis_blocks(cur, active):
         """Visual residual and body-pose Jacobian blocks at ``cur``
@@ -155,12 +159,12 @@ def frame_vi_optimize(prior: VioPrior, pre: imu_ops.Preintegrated, cur0: VioStat
         R_cw = R_cb @ cur.R_bw
         t_cw = _mv(R_cb, cur.t_bw) + t_cb
         r, row_mask, depth_ok = factors.reproj_residuals(
-            R_cw[None], t_cw[None], X, obs._replace(valid=active), cam_params, bf, cam_model)
+            R_cw[None], t_cw[None], X, obs._replace(valid=active), cam_params, bf, cam_model, rig=rig)
         chi2 = torch.sum(r * r, dim=-1) * obs.inv_sigma2
         w = obs.inv_sigma2 * factors.huber_weight(chi2, delta2) * (active & depth_ok)
-        pb = X @ cur.R_bw.T + cur.t_bw
+        pb = Xo @ cur.R_bw.T + cur.t_bw
         pc = pb @ R_cb.T + t_cb
-        _, Jproj = factors.project_with_jac(cam_params, pc, bf, cam_model)
+        _, Jproj, _ = factors._rig_select(obs, pc, cam_params, bf, cam_model, rig)
         dpc_dxi = R_cb @ torch.cat([eye3, -lie.hat(pb)], dim=-1)
         Jp = -(Jproj @ dpc_dxi) * row_mask[:, :, None]
         Jw = (Jp * w[:, None, None]).reshape(-1, 6).T
@@ -202,7 +206,8 @@ def frame_vi_optimize(prior: VioPrior, pre: imu_ops.Preintegrated, cur0: VioStat
     H_marg = H[15:30, 15:30] - Hpc.T @ torch.linalg.solve_ex(Hpp, Hpc)[0]
     H_marg = 0.5 * (H_marg + H_marg.T)
     H_marg = torch.where(torch.isfinite(H_marg).all(), H_marg, eye15)
-    return cur, VioPrior(H=H_marg, state=cur), active, torch.sum(active)
+    inlier = active if rig is None else active[:M]
+    return cur, VioPrior(H=H_marg, state=cur), inlier, torch.sum(active)
 
 
 def kf_prior(kf_R_cw, kf_t_cw, vel, bg, ba, R_cb, t_cb) -> VioPrior:
@@ -226,9 +231,8 @@ def vio_frame_step(lm_pos, lm_feat, lm_inlier, frame_xy, frame_u_right, frame_le
     (R_cw, t_cw, cur: VioState, next_prior: VioPrior, n_vio_inliers); the
     pose falls back to the IMU dead-reckoned state (and the prior to a stiff
     prior at it) when the solve is not finite or has fewer than
-    ``min_inliers`` visual inliers (the PredictStateIMU path)."""
-    if rig is not None:
-        raise NotImplementedError("camera rigs are not ported")
+    ``min_inliers`` visual inliers (the PredictStateIMU path). With a
+    ``rig``, ``frame_uv_r`` adds the right-camera rows."""
     L = lm_feat.shape[0]
     M = cap
     dev = lm_pos.device
@@ -243,6 +247,7 @@ def vio_frame_step(lm_pos, lm_feat, lm_inlier, frame_xy, frame_u_right, frame_le
     u_right = torch.where(used, frame_u_right[feat], -1.0)
     # 1 / scale ** (2 level), in the form XLA compiles it to: scale ** (-2 level)
     inv_sigma2 = scale ** (-2.0 * frame_level[feat].to(torch.float32))
+    uv_r = None if frame_uv_r is None else frame_uv_r[feat]
 
     # dead-reckoned current state (previous state ∘ preintegration)
     prev = prior.state
@@ -256,7 +261,7 @@ def vio_frame_step(lm_pos, lm_feat, lm_inlier, frame_xy, frame_u_right, frame_le
     cur0 = VioState(R_bw=R_bc @ R_cw_vis, t_bw=_mv(R_bc, t_cw_vis) + t_bc, v=v2, bg=prev.bg, ba=prev.ba)
     cur, next_prior, _, n_in = frame_vi_optimize(
         prior, pre, cur0, X, uv, u_right, inv_sigma2, used, cam_params, R_cb, t_cb, bf, gravity,
-        cam_model=cam_model)
+        cam_model=cam_model, uv_r=uv_r, rig=rig)
     finite = torch.isfinite(cur.t_bw).all() & torch.isfinite(cur.v).all() & torch.isfinite(next_prior.H).all()
     ok = finite & (n_in >= min_inliers)
     cur = VioState(*(torch.where(ok, a, b) for a, b in zip(cur, pred)))

@@ -198,9 +198,8 @@ def initialize_imu(ms: msx.MapState, ikf: InertialKF, n_kf: int, g0, R_cb, t_cb,
 def build_fiba_problem(ms: msx.MapState, ikf: InertialKF, R_cb, t_cb, rig=None):
     """FullInertialBA problem: whole-map masked Observations, the
     consecutive-chain InertialEdges, the body-frame VIState and the fixed
-    masks. Returns (st, obs, edges, fixed_kf, fixed_point)."""
-    if rig is not None:
-        raise NotImplementedError("camera rigs are not ported")
+    masks; with a ``rig``, one right-camera row per feature slot. Returns
+    (st, obs, edges, fixed_kf, fixed_point)."""
     K, N = ms.K, ms.N
     dev = ms.obs_lm.device
     obs_rows = ms.obs_lm
@@ -215,6 +214,8 @@ def build_fiba_problem(ms: msx.MapState, ikf: InertialKF, R_cb, t_cb, rig=None):
         inv_sigma2=inv_s2.reshape(-1),
         valid=feat_ok.reshape(-1),
     )
+    if rig is not None:
+        obs = factors.with_rig_rows(obs, ms.kf_uvr.reshape(-1, 2))
     ks = torch.arange(1, K, device=dev)
     edges = _edges(ikf, ks, ks - 1, ks, ikf.pre_valid[ks] & ms.kf_valid[ks] & ms.kf_valid[ks - 1])
     R_bw, t_bw = _body_poses(ms.kf_R_cw, ms.kf_t_cw, R_cb, t_cb)
@@ -254,6 +255,7 @@ def full_inertial_ba(ms: msx.MapState, ikf: InertialKF, gravity, cam_params, R_c
         st, ms.lm_pos, obs, edges, fixed_kf, fixed_point, cam_params, R_cb, t_cb, bf, gravity,
         gyro_walk_info=vi_ba.WALK_INFO_CAP, acc_walk_info=vi_ba.WALK_INFO_CAP,
         prior_bg_info=prior_bg_info, prior_ba_info=prior_ba_info, iters=iters, cam_model=cam_model,
+        rig=rig,
     )
     ms, ikf = apply_fiba_result(ms, ikf, st_f, X_f, fixed_kf, R_cb, t_cb)
     return ms, ikf, costs[-1]
@@ -267,9 +269,8 @@ def local_vi_ba_step(ms: msx.MapState, ikf: InertialKF, center_kf: int, gravity,
     the landmark compaction of ``local_ba_step`` and the oldest valid
     keyframe fixed. With ``window >= n_kf`` and bias priors it is the
     whole-map FullInertialBA in its dense-Schur form (the bFIBA call).
-    Returns (ms, ikf, final_cost); nothing reads the device."""
-    if rig is not None:
-        raise NotImplementedError("camera rigs are not ported")
+    A ``rig`` adds the right-camera rows. Returns (ms, ikf, final_cost);
+    nothing reads the device."""
     K, N, L = ms.K, ms.N, ms.L
     dev = ms.lm_pos.device
     ww = torch.arange(window, device=dev)
@@ -306,6 +307,8 @@ def local_vi_ba_step(ms: msx.MapState, ikf: InertialKF, center_kf: int, gravity,
         inv_sigma2=inv_s2.reshape(-1),
         valid=obs_valid.reshape(-1),
     )
+    if rig is not None:
+        obs = factors.with_rig_rows(obs, ms.kf_uvr[win].reshape(-1, 2))
     # inertial edges between consecutive window slots
     edges = _edges(ikf, win[1:], ww[:-1], ww[1:], ikf.pre_valid[win[1:]] & win_ok[1:] & win_ok[:-1])
     R_bw, t_bw = _body_poses(ms.kf_R_cw[win], ms.kf_t_cw[win], R_cb, t_cb)
@@ -318,6 +321,7 @@ def local_vi_ba_step(ms: msx.MapState, ikf: InertialKF, center_kf: int, gravity,
         st, X_local, obs, edges, fixed, ~used, cam_params, R_cb, t_cb, bf, gravity,
         gyro_walk_info=vi_ba.WALK_INFO_CAP, acc_walk_info=vi_ba.WALK_INFO_CAP,
         prior_bg_info=prior_bg_info, prior_ba_info=prior_ba_info, iters=iters, cam_model=cam_model,
+        rig=rig,
     )
 
     # ---- write back: T_cw = T_cb ∘ T_bw, inertial states, landmarks ------

@@ -465,9 +465,9 @@ def _correct_core(ms: msx.MapState, n_kf: int, kf_idx: int, cand: int, R_delta, 
 
 
 def map_observations(ms: msx.MapState, with_rig: bool = False):
-    """Flat Observations table + fixed masks over the whole map state."""
-    if with_rig:
-        raise NotImplementedError("camera rigs are not ported")
+    """Flat Observations table + fixed masks over the whole map state;
+    ``with_rig`` appends one right-camera row per feature slot
+    (``factors.with_rig_rows``)."""
     K, N = ms.K, ms.N
     dev = ms.obs_lm.device
     kf_col = torch.arange(K, device=dev)[:, None].expand(K, N)
@@ -483,6 +483,8 @@ def map_observations(ms: msx.MapState, with_rig: bool = False):
         inv_sigma2=inv_s2.reshape(-1),
         valid=feat_ok.reshape(-1),
     )
+    if with_rig:
+        obs = factors.with_rig_rows(obs, ms.kf_uvr.reshape(-1, 2))
     fixed_pose = ~ms.kf_valid | (torch.arange(K, device=dev) == 0)
     fixed_point = ~ms.lm_valid
     return obs, fixed_pose, fixed_point

@@ -280,7 +280,7 @@ def merge_into_shelved(slam, shelf_idx: int, kf_cur: int, kf_old: int, R_d, t_d)
     # which the fusion made covisible; the rest of both maps stays put
     ms = tracking.local_ba_step(
         ms, kf_cur_new, slam.cam_params, slam.cfg.camera.bf, window=12,
-        lm_cap=slam.cfg.capacity.max_local_landmarks, iters=4, cam_model=slam.cam_model,
+        lm_cap=slam.cfg.capacity.max_local_landmarks, iters=4, cam_model=slam.cam_model, rig=slam.rig,
     )
 
     # install as the active map; the live pose moves with its map:
@@ -341,7 +341,7 @@ def _weld_inertial(slam, shelf, kf_dst, R_d) -> None:
     if slam.imu_initialized:
         slam.ms, slam.ikf, _ = inertial.full_inertial_ba(
             slam.ms, slam.ikf, slam.gravity, slam.cam_params, slam.R_cb, slam.t_cb,
-            slam.cfg.camera.bf, iters=2, cam_model=slam.cam_model,
+            slam.cfg.camera.bf, iters=2, cam_model=slam.cam_model, rig=slam.rig,
         )
 
 

@@ -1,7 +1,9 @@
 """Host-side SLAM system facade + tracking state machine.
 
-Port of the stereo, stereo-inertial, monocular and monocular-inertial
-pinhole paths of ``orb_slam3_detailed_comments_kor_tpu/slam/system.py``:
+Port of ``orb_slam3_detailed_comments_kor_tpu/slam/system.py``, every
+sensor path: stereo, stereo-inertial, monocular and monocular-inertial
+pinhole, RGB-D, and the KB8 fisheye (monocular, or a two-camera rig with or
+without an IMU):
 ``TrackingState``, ``select_eviction_slots``, ``reloc_candidate_groups``
 and the parts of ``SlamSystem`` that ``track_stereo`` reaches -- stereo
 initialization, the deferred, batched keyframe decisions, keyframe
@@ -34,8 +36,14 @@ BA and the 4-DoF loop correction. The monocular paths (``track_mono``,
 ``track_mono_inertial``) initialize by two views (``ops/twoview.py``),
 track with ``tracking.full_mono_step``, triangulate each keyframe against
 its covisible neighbours, correct loops in Sim(3), and, with an IMU, solve
-the metric scale at IMU initialization and re-gauge the map. Not here: the
-RGB-D and stereo-fisheye paths.
+the metric scale at IMU initialization and re-gauge the map. ``track_rgbd``
+takes a gray image and its metric depth map (uploaded with one
+non-blocking copy from pinned memory) through ``tracking.full_rgbd_step``.
+A KB8 camera with ``right_intrinsics`` and ``Tlr`` is a stereo-fisheye rig:
+``track_stereo`` and ``track_stereo_inertial`` take its raw pairs through
+``tracking.full_fisheye_step``, and every optimizer adds one right-camera
+row per matched feature through ``rig`` = (R_rl, t_rl, params_r), built
+once on the device.
 """
 
 from __future__ import annotations
@@ -155,8 +163,8 @@ def reloc_candidate_groups(
 
 
 class SlamSystem:
-    """Stereo, monocular and (stereo- or mono-) inertial SLAM system over
-    device-resident map state.
+    """Stereo, monocular, RGB-D and (stereo- or mono-) inertial SLAM system,
+    pinhole or KB8 fisheye, over device-resident map state.
 
     ``device`` is where the map, the vocabulary and every per-frame tensor
     live: the card unless the caller names another. ``enable_loop_closing``
@@ -169,12 +177,6 @@ class SlamSystem:
 
     def __init__(self, config: SLAMConfig, device="cuda"):
         cam = config.camera
-        if (config.sensor == SensorType.RGBD
-                or cam.model != "pinhole" or cam.right_intrinsics is not None):
-            raise NotImplementedError(
-                "only the stereo, stereo-inertial, monocular and monocular-inertial "
-                "pinhole paths are ported (no RGB-D or stereo-fisheye configurations)"
-            )
         self.cfg = config
         self.device = torch.device(device)
         cap = config.capacity
@@ -190,7 +192,23 @@ class SlamSystem:
         # raw pinhole inputs with distortion: keypoints are undistorted at
         # extraction (Frame::UndistortKeyPoints, src/Frame.cc:733); stereo
         # pinhole inputs are taken as rectified
-        self._dist = tuple(float(v) for v in cam.dist) if any(abs(v) > 0 for v in cam.dist) else None
+        self._dist = (tuple(float(v) for v in cam.dist)
+                      if cam.model == "pinhole" and any(abs(v) > 0 for v in cam.dist) else None)
+        # stereo fisheye: two KannalaBrandt8 cameras and their calibrated
+        # extrinsic (Frame.cc:1021; TUM_512.yaml's Camera2.* and Tlr), and
+        # the right-camera observation rig of the optimizers (ToBody edges,
+        # include/OptimizableTypes.h:31-145): (R_rl, t_rl, params_r), made
+        # once on the device
+        self.stereo_fisheye = cam.model == "kannala_brandt8" and cam.right_intrinsics is not None
+        self.rig = None
+        if self.stereo_fisheye:
+            self.cam_params_r = torch.tensor(cam.right_intrinsics, dtype=torch.float32).to(self.device)
+            T = np.asarray(cam.tlr, np.float32).reshape(-1)
+            M = torch.from_numpy(T.reshape(3, 4) if T.size == 12 else T.reshape(4, 4)[:3].copy()).to(self.device)
+            # Tlr maps right-camera coordinates to the left; triangulation
+            # takes the left-to-right transform
+            self.R_rl, self.t_rl = lie.se3_inverse(M[:, :3], M[:, 3])
+            self.rig = (self.R_rl, self.t_rl, self.cam_params_r)
         # the monocular initialization's held reference (frame, time)
         self._mono_ref = None
         self.state = TrackingState.NOT_INITIALIZED
@@ -337,13 +355,27 @@ class SlamSystem:
 
     # ------------------------------------------------------------------
     def track_stereo(self, img_l, img_r, t: float) -> int:
-        """Feed one rectified pinhole stereo pair (arrays or tensors of
-        [H, W] intensities). Returns the tracking state."""
+        """Feed one stereo pair (arrays or tensors of [H, W] intensities):
+        rectified pinhole, or a raw dual-fisheye pair when the camera is
+        KB8 with Camera2 intrinsics and Tlr. Returns the tracking state."""
         cam = self.cfg.camera
         self.n_frames += 1
         self._check_timestamp_jump(t)
         img_l = torch.as_tensor(img_l, dtype=torch.float32, device=self.device)
         img_r = torch.as_tensor(img_r, dtype=torch.float32, device=self.device)
+        if self.stereo_fisheye:
+            if self.state == TrackingState.NOT_INITIALIZED:
+                orb = self.cfg.orb
+                frame = frontend.process_stereo_fisheye(
+                    img_l, img_r, self.cam_params, self.cam_params_r, self.R_rl, self.t_rl,
+                    n_features=orb.n_features, n_levels=orb.n_levels, scale=orb.scale_factor,
+                    cell=orb.cell_size,
+                )
+                self._stereo_initialize(frame, t)
+            else:
+                self._track_fisheye_fused(img_l, img_r, t)
+            self._record_frame(t)
+            return self.state
         if self.state == TrackingState.NOT_INITIALIZED:
             frame = frontend.process_stereo(
                 img_l, img_r, cam.bf,
@@ -399,6 +431,87 @@ class SlamSystem:
                 cell=self.cfg.orb.cell_size,
                 min_inliers=self.cfg.tracking.min_inliers_local_map,
                 far_dist=self.cfg.camera.th_far_points,
+            )
+        self._after_dispatch(out, t)
+        return out
+
+    def _pose_prior(self, R_last, t_last, override_pred):
+        """The mono and fisheye steps' always-present pose prior: the
+        IMU-predicted pose at the configured information when the prediction
+        comes from the IMU, else zero information."""
+        if override_pred is not None and self.cfg.is_inertial:
+            tc = self.cfg.tracking
+            return (R_last, t_last, 1.0 / tc.imu_prior_sigma_rot ** 2, 1.0 / tc.imu_prior_sigma_trans ** 2)
+        return self._zero_prior
+
+    def _track_fisheye_fused(self, img_l, img_r, t: float, override_pred=None):
+        """Deferred-decision dual-fisheye tracking: the stereo ``_track``
+        pipeline through ``tracking.full_fisheye_step`` (the KB8 model and
+        the rig rows); an IMU-predicted ``override_pred`` also enters the
+        pose solve as a prior."""
+        cam, orb = self.cfg.camera, self.cfg.orb
+        if override_pred is not None:
+            (R_last, t_last), has_vel = override_pred, self._vel_flag[False]
+        else:
+            R_last, t_last, has_vel = self.R_cw, self.t_cw, self._vel_flag[self.has_velocity]
+        prior = self._pose_prior(R_last, t_last, override_pred)
+        self._service_background()
+        with self.timer.span("track/dispatch"):
+            out = tracking.full_fisheye_step(
+                self.ms, img_l, img_r, R_last, t_last, self.vel_R, self.vel_t, has_vel,
+                self.cam_params, self.cam_params_r, self.R_rl, self.t_rl, prior,
+                w=cam.width, h=cam.height, scale=orb.scale_factor, n_levels=orb.n_levels,
+                n_features=orb.n_features, cell=orb.cell_size,
+                min_inliers=self.cfg.tracking.min_inliers_local_map, far_dist=cam.th_far_points,
+            )
+        self._after_dispatch(out, t)
+        return out
+
+    # ------------------------------------------------------------------
+    # RGB-D mode (System::TrackRGBD)
+    # ------------------------------------------------------------------
+    def _upload(self, x):
+        """A host array as a float32 tensor on the system's device: one
+        non-blocking copy from pinned memory on the card (a pageable copy
+        would wait for the stream); tensors are moved as they are."""
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device, torch.float32)
+        host = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))
+        if self.device.type != "cuda":
+            return host
+        return host.pin_memory().to(self.device, non_blocking=True)
+
+    def track_rgbd(self, img, depth_map, t: float) -> int:
+        """Feed one RGB-D frame: a gray image [H, W] and its metric depth
+        [H, W] (arrays or tensors). Returns the tracking state."""
+        self.n_frames += 1
+        self._check_timestamp_jump(t)
+        img, depth_map = self._upload(img), self._upload(depth_map)
+        if self.state == TrackingState.NOT_INITIALIZED:
+            orb = self.cfg.orb
+            frame = frontend.process_rgbd(
+                img, depth_map, self.cfg.camera.bf, n_features=orb.n_features, n_levels=orb.n_levels,
+                scale=orb.scale_factor, cell=orb.cell_size, dist=self._dist, cam_params=self.cam_params,
+            )
+            self._stereo_initialize(frame, t)
+        else:
+            self._track_rgbd_fused(img, depth_map, t)
+        self._record_frame(t)
+        return self.state
+
+    def _track_rgbd_fused(self, img, depth_map, t: float):
+        """Deferred-decision RGB-D tracking through
+        ``tracking.full_rgbd_step``."""
+        cam, orb = self.cfg.camera, self.cfg.orb
+        R_last, t_last, has_vel = self.R_cw, self.t_cw, self._vel_flag[self.has_velocity]
+        self._service_background()
+        with self.timer.span("track/dispatch"):
+            out = tracking.full_rgbd_step(
+                self.ms, img, depth_map, R_last, t_last, self.vel_R, self.vel_t, has_vel,
+                self.cam_params, bf=cam.bf, w=cam.width, h=cam.height, scale=orb.scale_factor,
+                n_levels=orb.n_levels, n_features=orb.n_features, cell=orb.cell_size,
+                min_inliers=self.cfg.tracking.min_inliers_local_map, far_dist=cam.th_far_points,
+                dist=self._dist,
             )
         self._after_dispatch(out, t)
         return out
@@ -489,10 +602,7 @@ class SlamSystem:
             (R_last, t_last), has_vel = override_pred, self._vel_flag[False]
         else:
             R_last, t_last, has_vel = self.R_cw, self.t_cw, self._vel_flag[self.has_velocity]
-        prior = self._zero_prior
-        if override_pred is not None and self.cfg.is_inertial:
-            tc = self.cfg.tracking
-            prior = (R_last, t_last, 1.0 / tc.imu_prior_sigma_rot ** 2, 1.0 / tc.imu_prior_sigma_trans ** 2)
+        prior = self._pose_prior(R_last, t_last, override_pred)
         self._service_background()
         orb = self.cfg.orb
         with self.timer.span("track/dispatch"):
@@ -816,7 +926,15 @@ class SlamSystem:
         lm = ms.obs_lm[cand, feat_b]
         ok3d = res.valid & (lm >= 0)
         X = ms.lm_pos[torch.clamp(lm, min=0).to(torch.int64)]
-        R, t, _, n = ransac.pnp_ransac(X, frame.xy, ok3d, self.cam_params, self._split_key(),
+        uv_obs = frame.xy
+        if self.cam_model != "pinhole":
+            # bearing-space PnP (MLPnP works on bearing vectors,
+            # src/MLPnPsolver.cpp): fisheye pixels become rays, expressed as
+            # measurements of a virtual pinhole with the same intrinsics
+            rays = cam_mod.unproject(self.cam_params, frame.xy, self.cam_model)
+            p = self.cam_params
+            uv_obs = torch.stack([p[0] * rays[:, 0] + p[2], p[1] * rays[:, 1] + p[3]], dim=-1)
+        R, t, _, n = ransac.pnp_ransac(X, uv_obs, ok3d, self.cam_params, self._split_key(),
                                        n_hyp=192, inlier_px=6.0)
         if int(n) < 15:
             return None
@@ -913,14 +1031,14 @@ class SlamSystem:
             self.ms, self.ikf, _ = inertial.local_vi_ba_step(
                 self.ms, self.ikf, kf_idx, self.gravity, self.cam_params, self.R_cb, self.t_cb,
                 cam.bf, window=10, lm_cap=self.cfg.capacity.max_local_landmarks,
-                iters=2, cam_model=self.cam_model,
+                iters=2, cam_model=self.cam_model, rig=self.rig,
             )
             return
         self.ms = tracking.local_ba_step(
             self.ms, kf_idx, self.cam_params,
             cam.bf, window=min(8, self.cfg.capacity.max_local_kfs),
             lm_cap=self.cfg.capacity.max_local_landmarks,
-            iters=2, cam_model=self.cam_model,
+            iters=2, cam_model=self.cam_model, rig=self.rig,
         )
 
     #: queued-slice backpressure: past this depth the inserting keyframe
@@ -953,7 +1071,7 @@ class SlamSystem:
                     cost = self._inertial_gba_slice()
                 else:
                     self.ms, cost = self.loop_closer.gba_chunk(
-                        self.ms, self.cam_params, self.cfg.camera.bf, cam_model=self.cam_model,
+                        self.ms, self.cam_params, self.cfg.camera.bf, cam_model=self.cam_model, rig=self.rig,
                     )
             self._gba_chunks_left -= 1
             self._gba_chunks_run += 1
@@ -972,12 +1090,12 @@ class SlamSystem:
             self.ms, self.ikf, _ = inertial.local_vi_ba_step(
                 self.ms, self.ikf, cur, self.gravity, self.cam_params, self.R_cb, self.t_cb,
                 cam.bf, window=W, lm_cap=self.cfg.capacity.max_local_landmarks,
-                iters=2, cam_model=self.cam_model,
+                iters=2, cam_model=self.cam_model, rig=self.rig,
             )
             return None
         self.ms, self.ikf, cost = inertial.full_inertial_ba(
             self.ms, self.ikf, self.gravity, self.cam_params, self.R_cb, self.t_cb, cam.bf,
-            iters=2, cam_model=self.cam_model,
+            iters=2, cam_model=self.cam_model, rig=self.rig,
         )
         return cost
 
@@ -1199,13 +1317,14 @@ class SlamSystem:
         pred = self._advance_imu(t)
         img_l = torch.as_tensor(img_l, dtype=torch.float32, device=self.device)
         img_r = torch.as_tensor(img_r, dtype=torch.float32, device=self.device)
+        track = self._track_fisheye_fused if self.stereo_fisheye else self._track
         if pred is not None:
             R_pred, t_pred, v2 = pred
-            out = self._track(img_l, img_r, t, override_pred=(R_pred, t_pred))
+            out = track(img_l, img_r, t, override_pred=(R_pred, t_pred))
             self.frame_vel = v2
             self._vio_refine(out, t)
         else:
-            self._track(img_l, img_r, t)
+            track(img_l, img_r, t)
         self.n_frames += 1
         self._last_frame_time = t
         self._record_frame(t)
@@ -1295,9 +1414,9 @@ class SlamSystem:
             prior, pre = self._vio_prior, seg
         with self.timer.span("track/vio"):
             R_cw, t_cw, cur, nxt, _ = vio.vio_frame_step(
-                ms.lm_pos, tr.lm_feat, tr.lm_inlier, frame.xy, frame.u_right, frame.level, None,
+                ms.lm_pos, tr.lm_feat, tr.lm_inlier, frame.xy, frame.u_right, frame.level, frame.uv_r,
                 tr.R_cw, tr.t_cw, prior, pre, self.cam_params, self.R_cb, self.t_cb, self.gravity,
-                None, bf=self.cfg.camera.bf, scale=self.cfg.orb.scale_factor, cam_model=self.cam_model,
+                self.rig, bf=self.cfg.camera.bf, scale=self.cfg.orb.scale_factor, cam_model=self.cam_model,
                 min_inliers=self.cfg.tracking.min_inliers_local_map,
             )
         self.R_cw, self.t_cw = R_cw, t_cw
@@ -1382,7 +1501,7 @@ class SlamSystem:
                 self.ms = tracking.local_ba_step(
                     self.ms, self.n_kf - 1, self.cam_params, cam.bf,
                     window=min(8, self.cfg.capacity.max_local_kfs),
-                    lm_cap=self.cfg.capacity.max_local_landmarks, cam_model=self.cam_model,
+                    lm_cap=self.cfg.capacity.max_local_landmarks, cam_model=self.cam_model, rig=self.rig,
                 )
                 self.ms = tracking.cull_landmarks(self.ms)
         else:
@@ -1453,7 +1572,7 @@ class SlamSystem:
         return inertial.local_vi_ba_step(
             self.ms, self.ikf, self.n_kf - 1, self.gravity, self.cam_params, self.R_cb, self.t_cb,
             self.cfg.camera.bf, window=self._INIT_FIBA_WINDOW,
-            lm_cap=self.cfg.capacity.max_local_landmarks, iters=2, cam_model=self.cam_model,
+            lm_cap=self.cfg.capacity.max_local_landmarks, iters=2, cam_model=self.cam_model, rig=self.rig,
             prior_bg_info=1e2, prior_ba_info=1e5,
         )
 

@@ -3,14 +3,17 @@ mapping steps the SLAM loop runs between frames.
 
 Port of ``TrackResult``, ``_project_landmarks``, ``track_frame``,
 ``update_landmark_stats``, ``make_keyframe``, ``full_frame_step``,
-``_finish_step``, ``full_mono_step``, ``local_ba_step``,
-``add_triangulated_landmarks``, ``triangulate_with_neighbor``,
-``cull_landmarks`` and ``cull_redundant_keyframes`` from
+``_finish_step``, ``full_mono_step``, ``full_rgbd_step``,
+``full_fisheye_step``, ``local_ba_step``, ``add_triangulated_landmarks``,
+``triangulate_with_neighbor``, ``cull_landmarks`` and
+``cull_redundant_keyframes`` from
 ``orb_slam3_detailed_comments_kor_tpu/slam/tracking.py``.
 
-``full_frame_step`` (stereo) and ``full_mono_step`` (monocular, with the
-IMU pose prior) are the per-frame paths: the ORB front-end, a three-stage
-project → match → motion-only BA, landmark stats and the motion model.
+``full_frame_step`` (stereo), ``full_mono_step`` (monocular, with the
+IMU pose prior), ``full_rgbd_step`` (RGB-D) and ``full_fisheye_step``
+(dual fisheye, with the prior and the right-camera rig rows) are the
+per-frame paths: the front end, a three-stage project → match →
+motion-only BA, landmark stats and the motion model.
 Everything stays on the device with static shapes and ``torch.where``
 selection; the caller's only host read is ``n_inliers``. The monocular
 mapping steps (neighbour triangulation and landmark creation) read
@@ -88,13 +91,15 @@ def track_frame(
     track_cap: int = 4096,
     prior=None,
     cam_model: str = "pinhole",
+    rig=None,
     far_dist: float = 0.0,
 ) -> TrackResult:
     """Three-stage project → match → optimize.
 
     The visible landmarks are compacted into a static ``track_cap`` window
     first (the reference's local map points), so the matcher and the LM
-    iterations run over [track_cap] rather than [L].
+    iterations run over [track_cap] rather than [L]. With a ``rig`` the
+    pose solves add each matched feature's right-camera row (``frame.uv_r``).
     """
     L = ms.L
     V = track_cap
@@ -138,6 +143,7 @@ def track_frame(
             R, t, X_v, frame.xy[feat], frame.u_right[feat],
             inv_sigma2_feat[feat], res.valid, cam_params, bf,
             rounds=rounds, iters=iters, prior=prior, cam_model=cam_model,
+            uv_r=None if rig is None else frame.uv_r[feat], rig=rig,
         )
         return opt, res, vis
 
@@ -200,14 +206,19 @@ def full_frame_step(
         img_l, img_r, bf, n_features=n_features, n_levels=n_levels,
         scale=scale, cell=cell,
     )
-    R_pred0, t_pred0 = lie.se3_compose(vel_R, vel_t, R_last, t_last)
-    R_pred = torch.where(has_vel, R_pred0, R_last)
-    t_pred = torch.where(has_vel, t_pred0, t_last)
+    R_pred, t_pred = _motion_model(R_last, t_last, vel_R, vel_t, has_vel)
     tr = track_frame(
         ms, frame, R_pred, t_pred, cam_params, bf, w, h, scale, n_levels,
         far_dist=far_dist,
     )
     return _finish_step(ms, frame, tr, R_last, t_last, vel_R, vel_t, min_inliers)
+
+
+def _motion_model(R_last, t_last, vel_R, vel_t, has_vel):
+    """The per-frame steps' predicted pose: vel ∘ T_last when the velocity
+    is known (resolved on the device), else T_last."""
+    R_pred0, t_pred0 = lie.se3_compose(vel_R, vel_t, R_last, t_last)
+    return torch.where(has_vel, R_pred0, R_last), torch.where(has_vel, t_pred0, t_last)
 
 
 def _finish_step(ms, frame, tr, R_last, t_last, vel_R, vel_t, min_inliers):
@@ -256,12 +267,86 @@ def full_mono_step(
         img, n_features=n_features, n_levels=n_levels, scale=scale, cell=cell,
         dist=dist, cam_params=cam_params,
     )
-    R_pred0, t_pred0 = lie.se3_compose(vel_R, vel_t, R_last, t_last)
-    R_pred = torch.where(has_vel, R_pred0, R_last)
-    t_pred = torch.where(has_vel, t_pred0, t_last)
+    R_pred, t_pred = _motion_model(R_last, t_last, vel_R, vel_t, has_vel)
     tr = track_frame(
         ms, frame, R_pred, t_pred, cam_params, bf, w, h, scale, n_levels,
         prior=prior, cam_model=cam_model, far_dist=far_dist,
+    )
+    return _finish_step(ms, frame, tr, R_last, t_last, vel_R, vel_t, min_inliers)
+
+
+def full_rgbd_step(
+    ms: msx.MapState,
+    img: torch.Tensor,
+    depth_map: torch.Tensor,
+    R_last: torch.Tensor,
+    t_last: torch.Tensor,
+    vel_R: torch.Tensor,
+    vel_t: torch.Tensor,
+    has_vel: torch.Tensor,
+    cam_params: torch.Tensor,
+    bf: float,
+    w: int,
+    h: int,
+    scale: float = 1.2,
+    n_levels: int = 8,
+    n_features: int = 1200,
+    cell: int = 32,
+    min_inliers: int = 10,
+    dist=None,
+    far_dist: float = 0.0,
+):
+    """The RGB-D per-frame path (the RGB-D Frame constructor,
+    ``Frame.cc:201``, then the track): the stereo step's stages on a gray
+    image and its depth map."""
+    frame = fe.process_rgbd(
+        img, depth_map, bf, n_features=n_features, n_levels=n_levels, scale=scale, cell=cell,
+        dist=dist, cam_params=cam_params,
+    )
+    R_pred, t_pred = _motion_model(R_last, t_last, vel_R, vel_t, has_vel)
+    tr = track_frame(
+        ms, frame, R_pred, t_pred, cam_params, bf, w, h, scale, n_levels,
+        far_dist=far_dist,
+    )
+    return _finish_step(ms, frame, tr, R_last, t_last, vel_R, vel_t, min_inliers)
+
+
+def full_fisheye_step(
+    ms: msx.MapState,
+    img_l: torch.Tensor,
+    img_r: torch.Tensor,
+    R_last: torch.Tensor,
+    t_last: torch.Tensor,
+    vel_R: torch.Tensor,
+    vel_t: torch.Tensor,
+    has_vel: torch.Tensor,
+    cam_params: torch.Tensor,
+    cam_params_r: torch.Tensor,
+    R_rl: torch.Tensor,
+    t_rl: torch.Tensor,
+    prior,
+    w: int,
+    h: int,
+    scale: float = 1.2,
+    n_levels: int = 8,
+    n_features: int = 1200,
+    cell: int = 32,
+    min_inliers: int = 10,
+    far_dist: float = 0.0,
+):
+    """The dual-fisheye (KannalaBrandt8 x2) per-frame path (the
+    stereo-fisheye Frame constructor, ``Frame.cc:1021``, then the track):
+    bf 0 (no rectified stereo row), the KB8 model, the right-camera rows
+    through (R_rl, t_rl, cam_params_r), and the always-present pose
+    ``prior`` of ``full_mono_step``."""
+    frame = fe.process_stereo_fisheye(
+        img_l, img_r, cam_params, cam_params_r, R_rl, t_rl,
+        n_features=n_features, n_levels=n_levels, scale=scale, cell=cell,
+    )
+    R_pred, t_pred = _motion_model(R_last, t_last, vel_R, vel_t, has_vel)
+    tr = track_frame(
+        ms, frame, R_pred, t_pred, cam_params, 0.0, w, h, scale, n_levels,
+        prior=prior, cam_model="kannala_brandt8", rig=(R_rl, t_rl, cam_params_r), far_dist=far_dist,
     )
     return _finish_step(ms, frame, tr, R_last, t_last, vel_R, vel_t, min_inliers)
 
@@ -366,7 +451,7 @@ def make_keyframe(
         kf_angle=row(ms.kf_angle, frame.angle),
         kf_desc=row(ms.kf_desc, frame.desc_packed),
         kf_ur=row(ms.kf_ur, frame.u_right),
-        kf_uvr=row(ms.kf_uvr, -1.0),
+        kf_uvr=row(ms.kf_uvr, -1.0 if frame.uv_r is None else frame.uv_r),
         kf_feat_valid=row(ms.kf_feat_valid, frame.valid),
         obs_lm=row(ms.obs_lm, feat_lm),
     )
@@ -402,9 +487,10 @@ def local_ba_step(
     slot of the block writes landmark 0's old position to landmark 0 after
     the used slots, and the last write wins (``scatter_last``), so landmark
     0 keeps its position whenever the block has an unused slot.
+
+    With a ``rig`` each observation adds its right-camera row
+    (``kf_uvr``); a right row alone never drops an observation.
     """
-    if rig is not None:
-        raise NotImplementedError("camera rigs are not ported")
     K, N, L = ms.K, ms.N, ms.L
     dev = ms.lm_pos.device
     center = torch.arange(center_kf, center_kf + 1, device=dev)
@@ -453,9 +539,12 @@ def local_ba_step(
         inv_sigma2=inv_s2.reshape(-1),
         valid=obs_valid.reshape(-1),
     )
+    if rig is not None:
+        # one right-camera mono row per matched feature (the ToBody edges)
+        obs = factors.with_rig_rows(obs, ms.kf_uvr[win].reshape(-1, 2))
     res = ba.bundle_adjust(
         ms.kf_R_cw[win], ms.kf_t_cw[win], X_local, obs, fixed_pose, ~used,
-        cam_params, bf, iters=iters, cam_model=cam_model,
+        cam_params, bf, iters=iters, cam_model=cam_model, rig=rig,
     )
 
     # ---- scatter back ----------------------------------------------------
@@ -469,8 +558,9 @@ def local_ba_step(
     # below a floor of 30 observations per keyframe (an obs-less keyframe
     # floats free and corrupts later windows).
     delta2 = torch.where(obs.u_right >= 0, 7.815, 5.991)
-    egregious2d = (obs.valid & (res.chi2 > 4.0 * delta2)).view(window, N)
-    would_keep = torch.sum(obs.valid.view(window, N) & ~egregious2d, dim=1)
+    # drop decisions are per left feature slot: the rig's right rows follow
+    egregious2d = (obs.valid & (res.chi2 > 4.0 * delta2))[: window * N].view(window, N)
+    would_keep = torch.sum(obs.valid[: window * N].view(window, N) & ~egregious2d, dim=1)
     allow_drop = (would_keep >= 30)[:, None]
     new_rows = torch.where(egregious2d & allow_drop, -1, obs_rows)
     obs_lm[win] = torch.where(win_valid[:, None], new_rows, obs_rows)

@@ -24,7 +24,12 @@ gravity within 1e-3 rad), with a VI local-BA slice that gives the same
 bits twice on the card; and the small monocular pass
 (``chip_smoke.mono_config(small=True)``) on the card against the CPU (the
 same initialization frame, keyframes and counters, centres within
-MONO_TRANS_TOL, rotations within ROT_TOL).
+MONO_TRANS_TOL, rotations within ROT_TOL); and the small RGB-D,
+stereo-fisheye and monocular KB8 passes (``chip_smoke.sensor_config(kind,
+small=True)``) on the card against the CPU (the same keyframes and
+counters, poses within TRANS_TOL / ROT_TOL; the monocular KB8 pass with
+both sides resumed from the CPU's map, made on eight threads, right after
+its initialization, both tracking, centres within MONO_TRANS_TOL).
 """
 
 import pytest
@@ -299,5 +304,75 @@ def test_small_mono_pass_card_matches_cpu(dev):
     assert card[1] == host[1] and card[2] == host[2] and host[0].state == 1
     assert card[0].stats == host[0].stats
     d_c, d_r = chip_smoke.trajectory_diff(card[0].trajectory_arrays(), host[0].trajectory_arrays())
+    assert d_c.max() <= chip_smoke.MONO_TRANS_TOL and d_r.max() <= chip_smoke.ROT_TOL, (
+        d_c.round(5).tolist(), d_r.round(5).tolist())
+
+
+@pytest.mark.parametrize("kind", ["rgbd", "fisheye"])
+def test_small_sensor_pass_card_matches_cpu(dev, kind):
+    # the small RGB-D pass (chip_smoke.sensor_config("rgbd", small=True),
+    # 16 strafe frames at 0.03 m) and the small stereo-fisheye pass (the
+    # rig of the JAX package's tests/test_fisheye.py, 16 frames at 0.04 m)
+    # on the card and on the CPU: the same keyframes and counters, centres
+    # within TRANS_TOL and rotations within ROT_TOL
+    cpu = torch.device("cpu")
+    cfg = chip_smoke.sensor_config(kind, small=True)
+    _, frames, _ = chip_smoke.render_sensor_sequence(kind, cfg, 16, cpu, speed=0.03 if kind == "rgbd" else 0.04)
+    card = chip_smoke.run_sensor(kind, cfg, [tuple(x.to(dev) for x in f) for f in frames], dev)
+    host = chip_smoke.run_sensor(kind, cfg, frames, cpu)
+    for s in (card[0], host[0]):
+        s.flush_decisions()
+    assert card[1] == host[1] and host[0].state == card[0].state == 1
+    assert card[0].stats == host[0].stats
+    if kind == "fisheye":
+        assert chip_smoke.rig_rows(card[0], card[0].n_kf - 1) == chip_smoke.rig_rows(host[0], host[0].n_kf - 1)
+    d_c, d_r = chip_smoke.trajectory_diff(card[0].trajectory_arrays(), host[0].trajectory_arrays())
+    assert d_c.max() <= chip_smoke.TRANS_TOL and d_r.max() <= chip_smoke.ROT_TOL, (
+        d_c.round(5).tolist(), d_r.round(5).tolist())
+
+
+def test_small_mono_kb8_pass_card_matches_cpu(dev, tmp_path):
+    # the small monocular KB8 pass (chip_smoke.sensor_config("mono",
+    # small=True): the camera of the JAX package's tests/test_fisheye.py,
+    # 20 strafe frames at 0.05 m). The initialization's BA leaves the map's
+    # scale free to follow the order of float additions (ROADMAP F24: the
+    # maps that the card and this file's one-thread CPU make lose track at
+    # the next frame), so the CPU initializes on eight threads and the card
+    # and the CPU both resume from its checkpoint right after the
+    # initializing frame; then the same keyframes and counters, both
+    # tracking (state OK), centres within MONO_TRANS_TOL (in the map's
+    # gauge), rotations within ROT_TOL
+    from orb_slam3_detailed_comments_kor_tpu_torch.slam.system import SlamSystem
+
+    cpu = torch.device("cpu")
+    cfg = chip_smoke.sensor_config("mono", small=True)
+    _, imgs, _ = chip_smoke.render_sensor_sequence("mono", cfg, 20, cpu, speed=0.05)
+    init, threads = SlamSystem(cfg, device=cpu), torch.get_num_threads()
+    torch.set_num_threads(8)
+    try:
+        for i, img in enumerate(imgs):
+            init.track_mono(img, i / chip_smoke.FPS)
+            if init.state == 1:
+                break
+    finally:
+        torch.set_num_threads(threads)
+    start, path = i + 1, str(tmp_path / "init.npz")
+    init.save_map(path)
+    card, host = SlamSystem(cfg, device=dev), SlamSystem(cfg, device=cpu)
+    for s in (card, host):
+        s.load_map(path)
+    kf_at = {}
+    for name, s in (("card", card), ("host", host)):
+        kf_at[name] = []
+        for i in range(start, len(imgs)):
+            n0 = s.stats["kf_inserted"]
+            s.track_mono(imgs[i].to(s.device), i / chip_smoke.FPS)
+            if s.stats["kf_inserted"] != n0:
+                kf_at[name].append(i)
+        s.flush_decisions()
+    assert kf_at["card"] == kf_at["host"] and card.state == host.state == 1, (kf_at, card.state, host.state)
+    assert card.stats == host.stats
+    n = len(imgs) - start
+    d_c, d_r = chip_smoke.trajectory_diff(*(tuple(a[-n:] for a in s.trajectory_arrays()) for s in (card, host)))
     assert d_c.max() <= chip_smoke.MONO_TRANS_TOL and d_r.max() <= chip_smoke.ROT_TOL, (
         d_c.round(5).tolist(), d_r.round(5).tolist())

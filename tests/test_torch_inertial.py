@@ -91,8 +91,10 @@ def T(a):
 
 
 def tt(cls, d):
-    """A port NamedTuple from the reference's fields (as numpy)."""
-    return cls(**{f: T(d[f]) for f in cls._fields})
+    """A port NamedTuple from the reference's fields (as numpy); a field
+    the reference leaves None (an Observations table's rig ``cam``) keeps
+    the port's default."""
+    return cls(**{f: T(d[f]) for f in cls._fields if d.get(f) is not None})
 
 
 def pre_t(d):

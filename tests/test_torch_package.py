@@ -40,6 +40,14 @@ SLICE_MODULES = [
     # the monocular and monocular-inertial paths
     "ops.twoview",
 ]
+# the functions of the RGB-D and fisheye paths, in the modules they extend
+SLICE_FUNCTIONS = [
+    ("models.camera", "kb8_project"), ("models.camera", "kb8_unproject"), ("models.camera", "kb8_project_jac"),
+    ("models.camera", "project_jac"), ("slam.frontend", "process_rgbd"), ("slam.frontend", "process_stereo_fisheye"),
+    ("optim.factors", "with_rig_rows"), ("optim.factors", "_rig_select"), ("slam.tracking", "full_rgbd_step"),
+    ("slam.tracking", "full_fisheye_step"), ("slam.system", "SlamSystem.track_rgbd"),
+    ("slam.system", "SlamSystem._track_fisheye_fused"),
+]
 
 
 def test_imports_without_jax():
@@ -87,6 +95,11 @@ def test_sources_never_import_jax():
 def test_slice_modules_present():
     for m in SLICE_MODULES:
         assert os.path.exists(os.path.join(REPO, PKG, *m.split(".")) + ".py"), m
+    for m, name in SLICE_FUNCTIONS:
+        obj = importlib.import_module(f"{PKG}.{m}")
+        for part in name.split("."):
+            obj = getattr(obj, part)
+        assert callable(obj), (m, name)
 
 
 @pytest.mark.parametrize(
@@ -131,7 +144,10 @@ def test_entry_points_default_to_cuda(module, name):
      ("slam.system", "SlamSystem.track_mono"), ("slam.system", "SlamSystem.track_mono_inertial"),
      ("slam.frontend", "process_mono"), ("slam.tracking", "full_mono_step"),
      ("slam.tracking", "triangulate_with_neighbor"), ("slam.tracking", "add_triangulated_landmarks"),
-     ("ops.twoview", "reconstruct_two_views_hf"), ("slam.map_state", "apply_scale")],
+     ("ops.twoview", "reconstruct_two_views_hf"), ("slam.map_state", "apply_scale"),
+     ("slam.frontend", "process_rgbd"), ("slam.frontend", "process_stereo_fisheye"),
+     ("slam.tracking", "full_rgbd_step"), ("slam.tracking", "full_fisheye_step"),
+     ("slam.system", "SlamSystem.track_rgbd")],
 )
 def test_entry_points_follow_their_inputs_device(module, name):
     """Entry points that work on a system's or a map's tensors take no
@@ -157,6 +173,34 @@ def test_loop_closing_on_by_default():
     assert slam.enable_loop_closing is False
 
 
+@pytest.mark.parametrize("case", ["rgbd", "mono_kb8", "stereo_fisheye", "stereo_fisheye_inertial"])
+def test_sensor_systems_build_on_the_card_by_default(case):
+    """``SlamSystem(cfg)`` builds for RGB-D and for the KB8 fisheye (one
+    camera, or a stereo rig with ``right_intrinsics`` and ``Tlr``, with or
+    without an IMU), on the card unless the caller names another device;
+    a rig system carries its extrinsic and the right camera on the
+    system's device."""
+    import chip_smoke
+    from orb_slam3_detailed_comments_kor_tpu_torch.slam.system import SlamSystem, TrackingState
+
+    assert torch.device(inspect.signature(SlamSystem).parameters["device"].default).type == "cuda"
+    kind = {"rgbd": "rgbd", "mono_kb8": "mono", "stereo_fisheye": "fisheye",
+            "stereo_fisheye_inertial": "fsi"}[case]
+    cfg = chip_smoke.sensor_config(kind)
+    slam = SlamSystem(cfg, device="cpu")
+    assert slam.state == TrackingState.NOT_INITIALIZED and slam.ms.kf_t_cw.device.type == "cpu"
+    assert slam.cfg.is_inertial == (case == "stereo_fisheye_inertial")
+    assert slam.stereo_fisheye == (case.startswith("stereo"))
+    assert slam._dist is None
+    if slam.stereo_fisheye:
+        R_rl, t_rl, params_r = slam.rig
+        assert params_r.device.type == "cpu" and params_r.shape == (8,)
+        # Tlr is a pure +x offset of the right camera: left-to-right is -x
+        assert torch.equal(R_rl, torch.eye(3)) and torch.allclose(t_rl, torch.tensor([-chip_smoke.FISH_BASE, 0, 0]))
+    else:
+        assert slam.rig is None
+
+
 @pytest.mark.parametrize("sensor", ["MONOCULAR", "IMU_MONOCULAR"])
 def test_monocular_systems_build_on_the_card_by_default(sensor):
     """``SlamSystem(cfg)`` with a monocular sensor and a pinhole camera
@@ -168,17 +212,3 @@ def test_monocular_systems_build_on_the_card_by_default(sensor):
     slam = SlamSystem(tcfg.SLAMConfig(sensor=getattr(tcfg.SensorType, sensor)), device="cpu")
     assert slam.state == TrackingState.NOT_INITIALIZED and slam.ms.kf_t_cw.device.type == "cpu"
     assert slam.cfg.is_inertial == (sensor == "IMU_MONOCULAR")
-
-
-@pytest.mark.parametrize("case", ["rgbd", "fisheye", "rig"])
-def test_unported_configurations_raise(case):
-    """RGB-D, the KB8 fisheye and camera rigs are not ported: the system
-    refuses them."""
-    from orb_slam3_detailed_comments_kor_tpu_torch.slam.system import SlamSystem
-
-    cam = tcfg.CameraConfig()
-    cfg = {"rgbd": tcfg.SLAMConfig(sensor=tcfg.SensorType.RGBD),
-           "fisheye": tcfg.SLAMConfig(camera=dataclasses.replace(cam, model="kannala_brandt8")),
-           "rig": tcfg.SLAMConfig(camera=dataclasses.replace(cam, right_intrinsics=(1.0,) * 8))}[case]
-    with pytest.raises(NotImplementedError, match="not ported|no RGB-D"):
-        SlamSystem(cfg, device="cpu")

@@ -207,15 +207,20 @@ def system_arrays(system):
     return out, scalars
 
 
-def assert_loaded(written, loaded):
-    """``loaded`` (a system after load_map) holds exactly what ``written``
-    (the system that saved) held."""
-    (a, sa), (b, sb) = system_arrays(written), system_arrays(loaded)
+def assert_same_arrays(written, loaded):
+    """Two ``system_arrays`` results are equal, array for array."""
+    (a, sa), (b, sb) = written, loaded
     assert a.keys() == b.keys()
     for k in a:
         assert a[k].dtype == b[k].dtype and a[k].shape == b[k].shape, k
         np.testing.assert_array_equal(b[k], a[k], err_msg=k)
     assert sa == sb
+
+
+def assert_loaded(written, loaded):
+    """``loaded`` (a system after load_map) holds exactly what ``written``
+    (the system that saved) held."""
+    assert_same_arrays(system_arrays(written), system_arrays(loaded))
 
 
 def track(system, imgs, t0, stashes=None):
