@@ -170,19 +170,21 @@ Phase 10 the monocular-inertial pass at bench scale: ``track_mono_inertial``
          equal their plain versions at one frame's inputs.
 Phase 11 the RGB-D pass at bench scale: ``SlamSystem.track_rgbd``
          (``sensor_config("rgbd")``: phase 4's setup with an RGBD sensor,
-         loop closing on) over phase 4's 130 strafe frames, each the left
-         image and its rendered depth, after a 12-frame warm-up pass.
+         loop closing on) over the first 90 of phase 4's 130 strafe
+         frames, each the left image and its rendered depth, after a
+         12-frame warm-up pass.
          Every frame blocks on its pose under the sync debug mode; the
          kernels' inputs are recorded at frame 10. Prints one ``phase 11
          (<card>): {json}`` line (keyframes, loops, lost frames, ATE beside
          the JAX reference's ``REF_RGBD`` from ``tools/jax_sensor_ref.py
-         --pass rgbd``; frame wall p50/p99, frames/s, peak memory, the
+         --pass rgbd --frames 90``; frame wall p50/p99, frames/s, peak memory, the
          device ms and stream operations of one ``full_rgbd_step`` and one
          local-BA slice, synchronizing calls by frame kind).
 Phase 12 the stereo-fisheye pass: ``track_stereo`` on a rig of two 512x512
          KB8 cameras with TUM-VI's calibration (KB8_TUMVI), ``Tlr`` a 0.10 m
-         x-offset (``sensor_config("fisheye")``), over the same strafe as
-         raw fisheye pairs; as phase 11 against ``REF_FISHEYE``, with the
+         x-offset (``sensor_config("fisheye")``), over the first 60 frames
+         of the same strafe as raw fisheye pairs; as phase 11 against
+         ``REF_FISHEYE`` (the reference cut alike), with the
          device ms of one ``full_fisheye_step`` and one rig local-BA slice,
          the valid rig rows of the newest keyframe and the slice's
          run-to-run spread.
@@ -201,6 +203,35 @@ Phase 13 the stereo-fisheye-inertial pass (TUM-VI's own mode):
          frames make no synchronizing call, the mapping slices capture in a
          CUDA graph, a rig slice gives the same bits twice, the newest
          keyframe has at least 100 rig rows, and the three kernels equal
+         their plain versions at the recorded inputs.
+Phase 14 the dataset runner: phase 8's stereo-inertial data (the first
+         DS_FRAMES frames) written to a temporary directory in the EuRoC MAV
+         layout (8-bit PNGs with their data.csv, imu0/data.csv, the ground
+         truth, and a settings YAML in the reference's format with
+         rectification blocks) with absolute EuRoC-like stamps, run by the
+         port's ``examples/run_dataset.py`` on the card (the native
+         decode-and-rectify feeder, ``datasets.Rectifier``'s maps, the
+         settings' default capacity), every frame under the sync debug
+         mode, the kernels' inputs recorded at frame DS_PROFILE_FRAME. Then
+         its first DS_ONLINE_FRAMES frames are replayed through
+         ``io/online.OnlineNode`` from three producer threads (left, right,
+         IMU), and a ``LoopCloser`` without a vocabulary is fed the pass's
+         first four keyframes on the card and on the CPU. Prints the
+         runner's wall time and frames/s with decoding included, frame wall
+         p50/p99, the IMU initialization, keyframes, loops, lost frames,
+         state and ATE beside ``REF_EUROC`` (the JAX package's runner on the
+         same layout), the decoder that ran, the online node's processed and
+         dropped frames, the peak memory and the synchronizing calls by
+         frame kind. It fails unless the state is OK, the IMU initializes at
+         the reference's frame with its keyframes, the keyframes are within
+         2 of its, the loops and lost frames equal its, the ATE is at most
+         its plus 5 mm, the trajectory file has one row per frame, the
+         native decoder and feeder ran wherever the native library builds
+         (on a machine without libpng the runner decodes with PIL, and the
+         line says so), the node processed every frame and
+         dropped none and ended OK, tracked frames (fed host arrays) make no
+         synchronizing call, the trained vocabularies' centroids are equal
+         and their database rows within 1e-5, and the three kernels equal
          their plain versions at the recorded inputs.
 
 The last stdout line is {"ok": true, "device": {...}}; the line before it
@@ -2088,12 +2119,13 @@ def run_mono(cfg, imgs, dev, imu=None, on_frame=None, timer=False, fps=FPS):
     return slam, kf_at, init, imu_init
 
 
-def watched_frames(records, lat):
+def watched_frames(records, lat, block=True):
     """An ``on_frame`` that runs each frame under the sync debug mode with
     the batched decision read left out, so that each synchronizing call it
     counts is a host read of a value, and records per frame the slice it
     serviced (``kind``), the state before and after, the synchronizing calls
-    and the wall ms (blocking on the frame's pose)."""
+    and the wall ms (blocking on the frame's pose unless ``block`` is
+    false)."""
     from orb_slam3_detailed_comments_kor_tpu_torch.utils.host_read import HostRead
 
     read_numpy = HostRead.numpy
@@ -2124,7 +2156,8 @@ def watched_frames(records, lat):
             finally:
                 torch.cuda.set_sync_debug_mode("default")
                 HostRead.numpy = read_numpy
-        slam.t_cw.cpu()  # block on the frame's pose, as bench.py's latency pass does
+        if block:
+            slam.t_cw.cpu()  # block on the frame's pose, as bench.py's latency pass does
         lat.append((time.perf_counter() - t0) * 1e3)
         syncs = [str(w.message).splitlines()[0] for w in caught if SYNC_WARNING in str(w.message)]
         if getattr(slam, "imu_initialized", False) and not init0:
@@ -2432,7 +2465,9 @@ def phase10(dev, counters, per_kernel, smi):
 # rig, TUM-VI's own mode). Each runs a SENSOR_WARMUP-frame warm-up pass,
 # then one pass that blocks on each frame's pose under the sync debug mode
 # and records the kernels' inputs at one tracked frame (PROFILE_FRAME).
-SENSOR_FRAMES, SENSOR_WARMUP = 130, 12
+# Phases 11 and 12 run the first 90 and 60 of their 130 frames (cut to fit
+# the script's time when phase 14 came, against references cut alike).
+SENSOR_FRAMES, SENSOR_WARMUP = {"rgbd": 90, "fisheye": 60, "fsi": 130}, 12
 SENSOR_KF_TOL, FSI_GRAVITY_TOL = 2, 0.01
 PROFILE_FRAME = {"rgbd": 10, "fisheye": 10, "fsi": 80}
 # TUM-VI's 512x512 Kannala-Brandt calibration (the JAX package's
@@ -2444,11 +2479,13 @@ FISH_HW, FISH_BASE = 512, 0.10
 # projection searches (the fisheye's left-right match is the plain matcher)
 LAUNCHES_PER_SENSOR_FRAME = {"fast_nms": 1, "gather_patches": 1, "masked_best2": 3}
 # tools/jax_sensor_ref.py (one JAX device, asynchronous dispatch off, on a
-# CPU): --pass rgbd (79 s), --pass fisheye (123 s), --pass fsi (295 s)
-REF_RGBD = dict(state=1, n_kf=14, keyframe_frames=[0, 5, 13, 25, 33, 45, 53, 65, 73, 85, 93, 105, 113, 125],
-                loops_closed=0, lost_frames=0, landmarks=3210, ate_m=0.0047739403013083315)
-REF_FISHEYE = dict(state=1, n_kf=14, keyframe_frames=[0, 9, 17, 29, 37, 49, 57, 69, 77, 89, 97, 109, 117, 129],
-                   loops_closed=0, lost_frames=0, landmarks=2413, ate_m=0.002835381797830741, rig_rows_newest_kf=212)
+# CPU): --pass rgbd --frames 90 (the whole 130 frames: 14 keyframes, ATE
+# 4.774 mm), --pass fisheye --frames 60 (the whole 130: 14 keyframes, ATE
+# 2.835 mm, 212 rig rows), --pass fsi (295 s)
+REF_RGBD = dict(state=1, n_kf=10, keyframe_frames=[0, 5, 13, 25, 33, 45, 53, 65, 73, 85],
+                loops_closed=0, lost_frames=0, landmarks=2142, ate_m=0.003490707597087925)
+REF_FISHEYE = dict(state=1, n_kf=7, keyframe_frames=[0, 9, 17, 29, 37, 49, 57],
+                   loops_closed=0, lost_frames=0, landmarks=1253, ate_m=0.0030052389284745823, rig_rows_newest_kf=367)
 REF_FSI = dict(state=1, n_kf=14, keyframe_frames=[0, 9, 17, 29, 37, 49, 57, 69, 77, 89, 97, 109, 117, 129],
                loops_closed=0, lost_frames=0, landmarks=1635, ate_m=0.002024643313115801, rig_rows_newest_kf=368,
                imu_init=dict(frame=69, n_kf=8, gravity=[0.4552295207977295, 9.788310050964355, -0.4667590260505676]),
@@ -2566,16 +2603,16 @@ def sensor_phase(kind, dev, counters, per_kernel, smi):
     from orb_slam3_detailed_comments_kor_tpu_torch.slam import inertial, tracking
 
     phase = {"rgbd": 11, "fisheye": 12, "fsi": 13}[kind]
-    ref, prof_i = SENSOR_REF[kind], PROFILE_FRAME[kind]
+    ref, prof_i, n_frames = SENSOR_REF[kind], PROFILE_FRAME[kind], SENSOR_FRAMES[kind]
     cfg = sensor_config(kind)
     t_ph = time.time()
-    gt, frames, imu = render_sensor_sequence(kind, cfg, SENSOR_FRAMES, dev)
+    gt, frames, imu = render_sensor_sequence(kind, cfg, n_frames, dev)
     voc.load_default(dev)
     warm, _, _ = run_sensor(kind, cfg, frames[:SENSOR_WARMUP], dev, imu=imu)
     warm.flush_decisions()
     del warm
     torch.cuda.synchronize()
-    log(f"phase {phase}: rendered {SENSOR_FRAMES} frames and ran a {SENSOR_WARMUP}-frame warm-up pass in "
+    log(f"phase {phase}: rendered {n_frames} frames and ran a {SENSOR_WARMUP}-frame warm-up pass in "
         f"{time.time() - t_ph:.1f} s")
 
     # the timed pass: every frame blocks on its pose and runs under the sync
@@ -2643,7 +2680,7 @@ def sensor_phase(kind, dev, counters, per_kernel, smi):
         loops_closed=slam.loop_closer.n_loops_closed, stats=slam.stats, lost_frames=watch.calls.get("lost", 0),
         landmarks=int(slam.ms.lm_valid.sum()), ate_m=ate_m, ref=ref,
         frame_p50_ms=float(np.percentile(lat_s, 50)), frame_p99_ms=float(np.percentile(lat_s, 99)),
-        frame_max_ms=float(lat_s.max()), frames_per_s=SENSOR_FRAMES / pass_s, peak_mib=peak, launches=launches,
+        frame_max_ms=float(lat_s.max()), frames_per_s=n_frames / pass_s, peak_mib=peak, launches=launches,
         slice_device_ms=slice_ms, slice_stream_ops=slice_ops, stereo_step_stream_ops=16077,
         slice_graph_capture_error=capture, syncs_by_kind=sync_summary(records),
         sync_calls=sorted({c for f in records if f["kind"] in ("tracking", "keyframe") for c in f["sync_calls"]})[:8],
@@ -2658,14 +2695,14 @@ def sensor_phase(kind, dev, counters, per_kernel, smi):
         g_end = slam.gravity.cpu().tolist()
         rec.update(imu_init=init, gravity_end=g_end, gravity_end_vs_ref_rad=gravity_angle(g_end, ref["gravity_end"]))
     log(f"phase {phase} ({smi}): " + json.dumps(rec))
-    log(f"phase {phase}: {SENSOR_FRAMES} frames in {pass_s:.2f} s ({rec['frames_per_s']:.2f} frames/s), frame "
+    log(f"phase {phase}: {n_frames} frames in {pass_s:.2f} s ({rec['frames_per_s']:.2f} frames/s), frame "
         f"wall p50 {rec['frame_p50_ms']:.2f} ms p99 {rec['frame_p99_ms']:.2f} ms; {slam.n_kf} keyframes (reference "
         f"{ref['n_kf']}); ATE {ate_m * 1e3:.3f} mm (reference {ref['ate_m'] * 1e3:.3f} mm); device ms "
         + ", ".join(f"{k} {v:.3f}" for k, v in slice_ms.items())
         + f"; stream operations {slice_ops}; peak {peak:.1f} MiB; phase {phase} took {time.time() - t_ph:.1f} s "
         f"(the pass {pass_s:.1f} s, the kernel checks {t_checks:.1f} s, the slices {time.time() - t_post - t_checks:.1f} s)")
     bad = []
-    if slam.state != ref["state"] or len(slam.trajectory) != SENSOR_FRAMES:
+    if slam.state != ref["state"] or len(slam.trajectory) != n_frames:
         bad.append(f"final state {slam.state}, {len(slam.trajectory)} frames recorded")
     if abs(slam.n_kf - ref["n_kf"]) > SENSOR_KF_TOL:
         bad.append(f"{slam.n_kf} keyframes, the reference's {ref['n_kf']}")
@@ -2691,11 +2728,384 @@ def sensor_phase(kind, dev, counters, per_kernel, smi):
     if tracking_syncs:
         bad.append(f"{tracking_syncs} synchronizing calls in tracked frames: {rec['sync_calls']}")
     for k, n in LAUNCHES_PER_SENSOR_FRAME.items():
-        if launches[k] < n * (SENSOR_FRAMES - 1):
+        if launches[k] < n * (n_frames - 1):
             bad.append(f"{k}: {launches[k]} launches over the pass")
     if bad:
         raise AssertionError(f"phase {phase}: " + "; ".join(bad))
     return rec
+
+
+# Phase 14: the dataset runner on a recorded sequence. Phase 8's
+# stereo-inertial data (bench.py's ``bench_stereo_inertial``, all 130
+# frames: with the settings file's tracking defaults, a keyframe at least
+# every 20 frames, the IMU initializes at frame 117) written in the EuRoC
+# MAV layout with absolute EuRoC-like stamps (ROADMAP F29) and run by the
+# port's ``examples/run_dataset.py``; its first DS_ONLINE_FRAMES frames are
+# replayed through ``io/online.OnlineNode`` from three producer threads.
+DS_FRAMES, DS_ONLINE_FRAMES, DS_PROFILE_FRAME = 130, 30, 125
+DS_T0_NS = 1403636579763555584
+
+
+def write_png_gray(path, img, bits=8):
+    """A grayscale PNG of ``img`` (values rounded and clipped to the bit
+    depth's range): 8 bits, EuRoC's image format, or 16 bits, TUM RGB-D's
+    depth maps; written with the standard library's zlib, one filter-0
+    scanline per row."""
+    import struct
+    import zlib
+
+    a = np.clip(np.rint(np.asarray(img, np.float64)), 0, 2**bits - 1).astype(">u2" if bits == 16 else np.uint8)
+    h, w = a.shape
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), a.view(np.uint8).reshape(h, -1)], axis=1).tobytes()
+
+    def chunk(kind, data):
+        body = kind + data
+        return struct.pack(">I", len(data)) + body + struct.pack(">I", zlib.crc32(body) & 0xFFFFFFFF)
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, bits, 0, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+
+
+def _yaml_matrix(name, m):
+    m = np.asarray(m, np.float64)
+    data = ", ".join(repr(float(x)) for x in m.reshape(-1))
+    return f"{name}: !!opencv-matrix\n   rows: {m.shape[0]}\n   cols: {m.shape[1]}\n   dt: d\n   data: [{data}]\n"
+
+
+def euroc_settings(cfg):
+    """A settings YAML in the reference's format (``Camera.*``,
+    ``Camera.bf``, ``ThDepth``, ``ORBextractor.*``, ``IMU.*``, ``Tbc`` and
+    the ``LEFT.*`` / ``RIGHT.*`` rectification blocks) for ``cfg``'s
+    rectified pinhole pair: K as the camera's, no distortion, R the
+    identity, P = [K | 0] and [K | (-bf, 0, 0)], so that the rectification
+    maps are the pixel grid up to rounding and ``datasets.Rectifier`` and
+    the native remap run."""
+    c, o, imu = cfg.camera, cfg.orb, cfg.imu
+    K = np.array([[c.fx, 0.0, c.cx], [0.0, c.fy, c.cy], [0.0, 0.0, 1.0]])
+    lines = ["%YAML:1.0", 'Camera.type: "PinHole"']
+    for k, v in (("fx", c.fx), ("fy", c.fy), ("cx", c.cx), ("cy", c.cy), ("k1", 0.0), ("k2", 0.0), ("p1", 0.0),
+                 ("p2", 0.0), ("width", c.width), ("height", c.height), ("fps", c.fps), ("bf", c.bf)):
+        lines.append(f"Camera.{k}: {v!r}")
+    lines += [f"ThDepth: {c.th_depth!r}", f"ORBextractor.nFeatures: {o.n_features}",
+              f"ORBextractor.scaleFactor: {o.scale_factor!r}", f"ORBextractor.nLevels: {o.n_levels}",
+              f"ORBextractor.iniThFAST: {o.ini_th_fast}", f"ORBextractor.minThFAST: {o.min_th_fast}",
+              f"IMU.NoiseGyro: {imu.noise_gyro!r}", f"IMU.NoiseAcc: {imu.noise_acc!r}",
+              f"IMU.GyroWalk: {imu.gyro_walk!r}", f"IMU.AccWalk: {imu.acc_walk!r}",
+              f"IMU.Frequency: {imu.frequency!r}", f"LEFT.height: {c.height}", f"LEFT.width: {c.width}"]
+    text = "\n".join(lines) + "\n" + _yaml_matrix("Tbc", np.reshape(imu.tbc, (4, 4)))
+    for side, px in (("LEFT", 0.0), ("RIGHT", -c.bf)):
+        text += (_yaml_matrix(f"{side}.D", np.zeros((1, 5))) + _yaml_matrix(f"{side}.K", K)
+                 + _yaml_matrix(f"{side}.R", np.eye(3))
+                 + _yaml_matrix(f"{side}.P", np.c_[K, [px, 0.0, 0.0]]))
+    return text
+
+
+def write_euroc_sequence(root, cfg, frames, imu_pf, gt_pos, gt_R, fps=FPS, t0_ns=DS_T0_NS):
+    """Write a stereo-inertial sequence in the EuRoC MAV layout under
+    ``root``: ``mav0/cam0|cam1/data/<ns>.png`` (8-bit PNGs) with their
+    ``data.csv``, ``mav0/imu0/data.csv`` (``t[ns], w, a``), the ground truth
+    ``mav0/state_groundtruth_estimate0/data.csv`` (``t[ns], p, q_wxyz``) and
+    ``settings.yaml``. ``frames``: (left, right) images (arrays or tensors);
+    ``imu_pf``: each frame's samples (t, acc, gyro) with t in seconds from
+    the first frame, stamped ``t0_ns`` + t. Returns (root, settings path,
+    ground-truth path, the frames' stamps in ns)."""
+    from orb_slam3_detailed_comments_kor_tpu_torch.io import trajectory as traj_io
+
+    mav = os.path.join(root, "mav0")
+    stamps = [t0_ns + int(round(i * 1e9 / fps)) for i in range(len(frames))]
+    for cam, side in (("cam0", 0), ("cam1", 1)):
+        os.makedirs(os.path.join(mav, cam, "data"), exist_ok=True)
+        with open(os.path.join(mav, cam, "data.csv"), "w") as f:
+            f.write("#timestamp [ns],filename\n")
+            for ns, pair in zip(stamps, frames):
+                img = pair[side]
+                write_png_gray(os.path.join(mav, cam, "data", f"{ns}.png"),
+                               img.cpu().numpy() if isinstance(img, torch.Tensor) else img)
+                f.write(f"{ns},{ns}.png\n")
+    os.makedirs(os.path.join(mav, "imu0"), exist_ok=True)
+    with open(os.path.join(mav, "imu0", "data.csv"), "w") as f:
+        f.write("#timestamp [ns],w_RS_S_x [rad s^-1],w_RS_S_y [rad s^-1],w_RS_S_z [rad s^-1],"
+                "a_RS_S_x [m s^-2],a_RS_S_y [m s^-2],a_RS_S_z [m s^-2]\n")
+        for row in imu_pf:
+            for t, acc, gyro in row:
+                vals = [float(v) for v in np.asarray(gyro, np.float32)] + [float(v) for v in np.asarray(acc, np.float32)]
+                f.write(f"{t0_ns + int(round(t * 1e9))}," + ",".join(f"{v:.9g}" for v in vals) + "\n")
+    gt_dir = os.path.join(mav, "state_groundtruth_estimate0")
+    os.makedirs(gt_dir, exist_ok=True)
+    gt_path = os.path.join(gt_dir, "data.csv")
+    q = traj_io._quats_wxyz(np.asarray(gt_R, np.float64))
+    with open(gt_path, "w") as f:
+        f.write("#timestamp, p_RS_R_x [m], p_RS_R_y [m], p_RS_R_z [m], q_RS_w [], q_RS_x [], q_RS_y [], q_RS_z []\n")
+        for ns, p, qq in zip(stamps, np.asarray(gt_pos, np.float64), q):
+            f.write(f"{ns}," + ",".join(f"{v:.9f}" for v in (*p, *qq)) + "\n")
+    settings = os.path.join(root, "settings.yaml")
+    with open(settings, "w") as f:
+        f.write(euroc_settings(cfg))
+    return root, settings, gt_path, stamps
+
+
+# The small recorded sequence of the CPU and cuda runner tests: 14 frames of
+# si_config(small=True)'s 240x376 / 600-feature pair at 20 fps
+SMALL_EUROC = dict(frames=14, fps=20.0)
+
+
+def small_euroc_sequence(root):
+    """Write the small stereo-inertial sequence of the runner tests under
+    ``root`` in the EuRoC layout (rendered on the CPU). Returns
+    ``write_euroc_sequence``'s (root, settings, ground truth, stamps)."""
+    from orb_slam3_detailed_comments_kor_tpu_torch.io import synthetic
+
+    n, fps = SMALL_EUROC["frames"], SMALL_EUROC["fps"]
+    cfg = si_config(small=True)
+    cfg = dataclasses.replace(cfg, camera=dataclasses.replace(cfg.camera, fps=fps))
+    gt, frames, imu = render_si_sequence(cfg, n, "cpu", fps=fps)
+    traj = synthetic.AnalyticTrajectory(device="cpu")
+    gt_R = np.stack([traj.pose(i / fps)[0].numpy() for i in range(n)])
+    return write_euroc_sequence(root, cfg, frames, imu, gt, gt_R, fps=fps)
+
+
+@contextlib.contextmanager
+def keyframes_recorded(cls, name, rec):
+    """Within the block every call of ``cls.name`` (a system's ``track_*``)
+    appends to ``rec["kf_at"]`` the call's index when it inserted a
+    keyframe, and ``rec["slam"]`` holds the system."""
+    orig = getattr(cls, name)
+    rec.setdefault("kf_at", [])
+    rec["calls"] = 0
+
+    def tracked(self, *a, **k):
+        i, n0 = rec["calls"], self.stats["kf_inserted"]
+        rec["calls"] += 1
+        rec["slam"] = self
+        out = orig(self, *a, **k)
+        if self.stats["kf_inserted"] != n0:
+            rec["kf_at"].append(i)
+        return out
+    setattr(cls, name, tracked)
+    try:
+        yield rec
+    finally:
+        setattr(cls, name, orig)
+
+
+# tools/jax_sensor_ref.py --pass euroc --frames 130: the JAX package's
+# examples/run_dataset.py on the same sequence (rendered by the JAX package,
+# written by write_euroc_sequence) on a CPU, one device, asynchronous
+# dispatch off and every decision read ready at its first chance (146 s).
+# The runner builds its configuration from the settings file: the capacity
+# and tracking defaults (512 keyframes, 32,768 landmarks, a keyframe at
+# least every 20 frames).
+REF_EUROC = dict(ate_m=0.0034981964132012526, state=1, n_kf=8, keyframe_frames=[0, 5, 17, 37, 57, 77, 97, 117],
+                 imu_init=dict(frame=117, n_kf=8, gravity=[0.4502810537815094, 9.78847599029541,
+                                                           -0.4680675268173218]),
+                 loops_closed=0, lost_frames=0, landmarks=1621, trajectory_rows=130)
+EUROC_KF_TOL = 2
+
+
+def phase14(dev, counters, per_kernel, smi):
+    """Phase 14: the dataset runner on a recorded sequence (see the module
+    docstring). Prints its JSON line, raises on a failed check, holds the
+    three kernels against their plain versions at one frame's inputs (into
+    ``per_kernel``) and returns the pass's record."""
+    import shutil
+    import tempfile
+    import threading
+
+    from orb_slam3_detailed_comments_kor_tpu_torch.config import SensorType
+    from orb_slam3_detailed_comments_kor_tpu_torch.examples import run_dataset
+    from orb_slam3_detailed_comments_kor_tpu_torch.io import datasets, native_host, online, synthetic
+    from orb_slam3_detailed_comments_kor_tpu_torch.slam import loop_closing
+    from orb_slam3_detailed_comments_kor_tpu_torch.slam import system as slam_mod
+
+    ref = REF_EUROC
+    t_ph = time.time()
+    cfg = si_config()
+    gt, frames, imu = render_si_sequence(cfg, DS_FRAMES, dev)
+    traj = synthetic.AnalyticTrajectory(device=dev)
+    gt_R = np.stack([traj.pose(i / FPS)[0].cpu().numpy() for i in range(DS_FRAMES)])
+    try:
+        native_host.load()
+        native = dict(built=True, library=os.path.basename(native_host.library_path()))
+    except Exception as e:  # reported, and failed below unless libpng is what is missing
+        err = repr(e) + repr(e.__cause__)
+        native = dict(built=False, error=err[-400:], libpng_missing="png.h" in err or "libpng" in err)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_euroc_")
+    try:
+        t0 = time.time()
+        root, settings_path, gt_path, stamps = write_euroc_sequence(tmp, cfg, frames, imu, gt, gt_R)
+        write_s = time.time() - t0
+        del frames
+        log(f"phase 14: rendered {DS_FRAMES} frames and wrote them in the EuRoC layout in {time.time() - t_ph:.1f} s "
+            f"(PNGs, CSVs and settings {write_s:.1f} s); native host library {native}")
+
+        # the runner's pass: every frame under the sync debug mode (no block on
+        # the pose: the runner's own frame times are what a user sees), the
+        # kernels' inputs recorded at one tracked frame after the IMU init;
+        # the first four keyframes' descriptors handed to the loop closer kept
+        records, lat, kcalls, adds = [], [], {}, []
+        watch = watched_frames(records, lat, block=False)
+        track = slam_mod.SlamSystem.track_stereo_inertial
+        add_kf = loop_closing.LoopCloser.add_keyframe
+        rec = {"calls": 0, "kf_at": [], "init": None}
+
+        def tracked(self, *a, **k):
+            i, n0 = rec["calls"], self.stats["kf_inserted"]
+            rec["calls"] += 1
+            call = lambda: track(self, *a, **k)
+            if i == DS_PROFILE_FRAME:
+                if self.state != 1 or not self.imu_initialized:
+                    raise AssertionError(f"phase 14: frame {i} is not tracked with the IMU")
+                with recording_kernel_calls(kcalls):
+                    watch(i, self, call)
+            else:
+                watch(i, self, call)
+            if self.stats["kf_inserted"] != n0:
+                rec["kf_at"].append(i)
+            if rec["init"] is None and self.imu_initialized:
+                rec["init"] = dict(frame=i, n_kf=self.n_kf, gravity=self.gravity.cpu().tolist())
+            return self.state
+
+        def add_recorded(self, kf_idx, desc, valid):
+            if len(adds) < 4:
+                adds.append((desc.clone(), valid.clone()))
+            return add_kf(self, kf_idx, desc, valid)
+
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        out_path = os.path.join(tmp, "trajectory.csv")
+        slam_mod.SlamSystem.track_stereo_inertial = tracked
+        loop_closing.LoopCloser.add_keyframe = add_recorded
+        try:
+            res = run_dataset.main(["--mode", "stereo_inertial", "--dataset", "euroc", "--seq", root,
+                                    "--settings", settings_path, "--out", out_path, "--gt", gt_path],
+                                   device=dev)
+        finally:
+            slam_mod.SlamSystem.track_stereo_inertial = track
+            loop_closing.LoopCloser.add_keyframe = add_kf
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        slam = res["slam"]
+        rows = np.loadtxt(out_path, delimiter=",", ndmin=2)
+        if LAUNCHES_PER_FRAME.keys() - kcalls.keys():
+            raise AssertionError(f"phase 14: kernel calls at frame {DS_PROFILE_FRAME}: {sorted(kcalls)}")
+        t_post = time.time()
+        run_checks(main_path_checks(kcalls, f"dataset runner frame {DS_PROFILE_FRAME}: "), counters, per_kernel)
+        t_checks = time.time() - t_post
+
+        # the online node: the first DS_ONLINE_FRAMES frames, decoded and
+        # rectified, and their IMU samples published by three producer threads
+        settings = datasets.load_settings(settings_path, SensorType.IMU_STEREO)
+        seq = datasets.EurocSequence(root)
+        seq.frames = seq.frames[:DS_ONLINE_FRAMES]
+        pairs = list(run_dataset.build_feeder(seq, settings, "stereo_inertial"))
+        t_last = seq.frames[-1].t
+        tt, gg, aa = seq.imu.between(seq.frames[0].t - 1.0, t_last + 0.5 / FPS)
+        slam2 = slam_mod.SlamSystem(settings.config, device=dev)
+        node = online.OnlineNode(slam2, "stereo_inertial", max_queue=DS_ONLINE_FRAMES)
+        node.start()
+        producers = [
+            threading.Thread(target=lambda: [node.publish_left(f.t, p[0]) for f, p in zip(seq.frames, pairs)]),
+            threading.Thread(target=lambda: [node.publish_right(f.t, p[1]) for f, p in zip(seq.frames, pairs)]),
+            threading.Thread(target=lambda: [node.publish_imu(float(t), a, g) for t, a, g in zip(tt, aa, gg)]),
+        ]
+        t0 = time.perf_counter()
+        for th in producers:
+            th.start()
+        for th in producers:
+            th.join()
+        node.stop(drain=True, timeout=300.0)
+        online_s = time.perf_counter() - t0
+        node_rec = dict(processed=node.n_processed, dropped_left=node.left.n_dropped,
+                        dropped_right=node.right.n_dropped, state=slam2.state, keyframes=slam2.n_kf,
+                        frames=len(slam2.trajectory), seconds=online_s)
+        del slam2, node, pairs
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # online vocabulary training: a LoopCloser without a vocabulary on the
+    # card, fed the pass's first four keyframes, against the same on the CPU
+    def trained(device):
+        lc = loop_closing.LoopCloser(max_kf=slam.ms.K, vocab=None)
+        for i, (d, v) in enumerate(adds):
+            lc.add_keyframe(i, d.to(device), v.to(device))
+        return lc
+
+    t0 = time.time()
+    lc_card, lc_cpu = trained(dev), trained("cpu")
+    vocab_s = time.time() - t0
+
+    def dense_rows(lc):
+        ids, wts = lc.db_words[: len(adds)].cpu().long(), lc.db_wts[: len(adds)].cpu()
+        out = torch.zeros((len(adds), lc.vocab.n_words + 1))
+        return out.scatter_add_(1, torch.where(ids >= 0, ids, lc.vocab.n_words), torch.where(ids >= 0, wts, 0.0))
+
+    vocab_rec = dict(
+        keyframes=len(adds), descriptors=int(sum(int(v.sum()) for _, v in adds)),
+        k=lc_card.vocab_k, depth=lc_card.vocab_depth, trained=lc_card.vocab is not None,
+        centroids_equal=bool(lc_card.vocab is not None and torch.equal(lc_card.vocab.centroids.cpu(),
+                                                                      lc_cpu.vocab.centroids)),
+        rows_max_abs_err=max_abs_err(dense_rows(lc_card), dense_rows(lc_cpu)) if lc_card.vocab is not None else None,
+        seconds=vocab_s)
+
+    times, centers, _ = slam.trajectory_arrays()
+    lat_runner = np.array(res["frame_ms"][5:])
+    record = dict(
+        frames=len(slam.trajectory), trajectory_rows=int(rows.shape[0]), state=slam.state, keyframes=slam.n_kf,
+        keyframe_frames=rec["kf_at"], imu_init=rec["init"], loops_closed=slam.loop_closer.n_loops_closed,
+        lost_frames=watch.calls.get("lost", 0), landmarks=int(slam.ms.lm_valid.sum()), ate_m=res["ate_m"], ref=ref,
+        stamps_ns=[stamps[0], stamps[-1]], decoder=res["decoder"], native_host=native,
+        runner_wall_s=res["wall_s"], runner_frames_per_s=res["frames_per_s"],
+        frame_p50_ms=float(np.percentile(lat_runner, 50)), frame_p99_ms=float(np.percentile(lat_runner, 99)),
+        frame_max_ms=float(lat_runner.max()),
+        track_call_p50_ms=float(np.percentile(lat[5:], 50)), peak_mib=peak, launches=launches,
+        syncs_by_kind=sync_summary(records),
+        sync_calls=sorted({c for f in records if f["kind"] in ("tracking", "keyframe") for c in f["sync_calls"]})[:8],
+        online=node_rec, online_vocabulary=vocab_rec, gravity_end=slam.gravity.cpu().tolist(),
+        stats=slam.stats, write_s=write_s, kernel_checks_s=t_checks)
+    log(f"phase 14 ({smi}): " + json.dumps(record))
+    log(f"phase 14: the runner ran {DS_FRAMES} frames in {res['wall_s']:.2f} s ({res['frames_per_s']:.2f} frames/s, "
+        f"decode and rectify included), frame wall p50 {record['frame_p50_ms']:.2f} ms p99 "
+        f"{record['frame_p99_ms']:.2f} ms; ATE {res['ate_m'] * 1e3:.3f} mm (JAX reference "
+        f"{ref['ate_m'] * 1e3:.3f} mm); {slam.n_kf} keyframes (reference {ref['n_kf']}); IMU init {rec['init']} "
+        f"(reference {ref['imu_init']}); decoder {res['decoder']}; online node {node_rec}; vocabulary {vocab_rec}; "
+        f"peak {peak:.1f} MiB; phase 14 took {time.time() - t_ph:.1f} s")
+    bad = []
+    if slam.state != ref["state"] or len(slam.trajectory) != DS_FRAMES or rows.shape[0] != DS_FRAMES:
+        bad.append(f"final state {slam.state}, {len(slam.trajectory)} frames recorded, {rows.shape[0]} trajectory rows")
+    init = rec["init"]
+    if init is None or (init["frame"], init["n_kf"]) != (ref["imu_init"]["frame"], ref["imu_init"]["n_kf"]):
+        bad.append(f"IMU init {init}, the reference's {ref['imu_init']}")
+    if abs(slam.n_kf - ref["n_kf"]) > EUROC_KF_TOL:
+        bad.append(f"{slam.n_kf} keyframes, the reference's {ref['n_kf']}")
+    if record["loops_closed"] != ref["loops_closed"] or record["lost_frames"] != ref["lost_frames"]:
+        bad.append(f"{record['loops_closed']} loops closed and {record['lost_frames']} frames decided lost, the "
+                   f"reference's {ref['loops_closed']} and {ref['lost_frames']}")
+    if not res["ate_m"] <= ref["ate_m"] + ATE_MARGIN:
+        bad.append(f"ATE {res['ate_m']} m")
+    # the native decoder must run wherever it builds; where the machine has
+    # no libpng (ROADMAP, item 15: the H100 machine) the runner decodes with
+    # PIL and rectifies in numpy, which the line above reports
+    if res["decoder"] != ("native" if native["built"] else "python") or not (
+            native["built"] or native["libpng_missing"]):
+        bad.append(f"the native decoder did not run: {native}, decoder {res['decoder']}")
+    if (node_rec["processed"], node_rec["dropped_left"], node_rec["dropped_right"]) != (DS_ONLINE_FRAMES, 0, 0) \
+            or node_rec["state"] != slam_mod.TrackingState.OK:
+        bad.append(f"the online node: {node_rec}")
+    tracking_syncs = sum(f["syncs"] for f in records if f["kind"] in ("tracking", "keyframe"))
+    if tracking_syncs:
+        bad.append(f"{tracking_syncs} synchronizing calls in tracked frames fed host arrays: {record['sync_calls']}")
+    if not (vocab_rec["trained"] and vocab_rec["centroids_equal"] and vocab_rec["rows_max_abs_err"] <= 1e-5):
+        bad.append(f"online vocabulary training, card against CPU: {vocab_rec}")
+    for k, n in LAUNCHES_PER_FRAME.items():
+        if launches[k] < DS_FRAMES - 1:
+            bad.append(f"{k}: {launches[k]} launches over the pass")
+    if bad:
+        raise AssertionError("phase 14: " + "; ".join(bad))
+    return record
 
 
 def main() -> int:
@@ -3044,6 +3454,11 @@ def main() -> int:
         t_ph = time.time()
         rec_sensor[kind] = sensor_phase(kind, dev, counters, per_kernel, smi)
         phase_s[ph] = time.time() - t_ph
+
+    # ---- phase 14: the dataset runner on a recorded sequence --------------
+    t_p14 = time.time()
+    rec14 = phase14(dev, counters, per_kernel, smi)
+    phase_s["14"] = time.time() - t_p14
     log("phase seconds: " + json.dumps(phase_s))
 
     sources = {
@@ -3064,7 +3479,7 @@ def main() -> int:
             "launches_si_pass": rec8["launches"][k], "launches_mono_pass": rec9["launches"][k],
             "launches_mi_pass": rec10["launches"][k], "launches_rgbd_pass": rec_sensor["rgbd"]["launches"][k],
             "launches_fisheye_pass": rec_sensor["fisheye"]["launches"][k],
-            "launches_fsi_pass": rec_sensor["fsi"]["launches"][k],
+            "launches_fsi_pass": rec_sensor["fsi"]["launches"][k], "launches_euroc_pass": rec14["launches"][k],
             "max_abs_err": info["max_abs_err"], "ms": main_case["ms"],
             "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
             "bound_by": main_case["bound_by"], "library_ms": main_case["library_ms"],

@@ -4,7 +4,9 @@ Port of the pinhole path of ``orb_slam3_detailed_comments_kor_tpu/io/
 synthetic.py``: a box room of textured planes ray-cast through the camera,
 giving images with dense FAST-able texture plus exact poses and depths.
 Rendering runs on the device of the camera parameters. Also here: the
-analytic trajectory with its exact synthetic IMU (``AnalyticTrajectory``). The texture lattice
+analytic trajectory with its exact synthetic IMU (``AnalyticTrajectory``),
+the corridor and single-wall scenes and the out-and-back corridor
+trajectory (``CorridorTrajectory``). The texture lattice
 is the reference's ``np.random.RandomState(7)`` draw, so both packages
 render the same world.
 """
@@ -92,6 +94,26 @@ def default_scene(device="cuda") -> Scene:
         offsets=t([[0.0, 0.0], [310.0, 95.0], [37.0, 11.0], [91.0, 53.0],
                    [140.0, 7.0], [200.0, 170.0]]),
     )
+
+
+def corridor_scene(device="cuda") -> Scene:
+    """Box room stretched along x (side walls at ±40): a long corridor so
+    an out-and-back trajectory traverses metres of non-repeating texture,
+    which forces capacity-pressure reclamation before the return leg
+    closes the loop. On ``device``, the card unless the caller names
+    another."""
+    s = default_scene(device)
+    ds = s.ds.clone()
+    ds[4:] = 40.0  # the two side walls (a fill on the device, no host copy)
+    return s._replace(ds=ds)
+
+
+def wall_scene(device="cuda") -> Scene:
+    """Single wall at z=5 (degenerate-geometry tests). On ``device``, the
+    card unless the caller names another."""
+    s = default_scene(device)
+    return Scene(normals=s.normals[:1], ds=s.ds[:1], u_axes=s.u_axes[:1],
+                 v_axes=s.v_axes[:1], offsets=s.offsets[:1])
 
 
 def render(
@@ -259,6 +281,26 @@ class AnalyticTrajectory:
         return ImuBatch(acc=accs, gyro=gyros,
                         dt=torch.where(valid, torch.tensor(dt, dtype=torch.float32, device=self.device), 0.0),
                         valid=valid)
+
+
+class CorridorTrajectory(AnalyticTrajectory):
+    """Out-and-back corridor pass layered on the excited sinusoid base:
+    x(t) += length · sin²(π·t / duration): it departs the start, reaches
+    ``length`` metres of fresh texture at t = duration/2 and returns, so
+    the return leg can only re-localize its drift through place
+    recognition against the start's keyframes (reference
+    ``LocalMapping.cc:1194`` keyframe culling against ``LoopClosing``'s
+    anchors)."""
+
+    def __init__(self, length: float = 12.0, duration: float = 150.0, **kw):
+        super().__init__(**kw)
+        base_pos = self._pos
+
+        def pos(t):
+            s = torch.sin(np.pi * t / duration) ** 2
+            return base_pos(t) + torch.stack([length * s, 0.0 * s, 0.0 * s])
+
+        self._rebind_pos(pos)
 
 
 def stereo_pair(

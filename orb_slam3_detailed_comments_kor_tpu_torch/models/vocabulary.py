@@ -2,12 +2,19 @@
 
 Port of ``Vocabulary``, ``load_default``, ``_level_offset``,
 ``transform_exact_topk``, ``soft_assign_weights``,
-``sparse_bow_soft_from_desc``, ``sparse_l1_score`` and the scheme
-constants of ``orb_slam3_detailed_comments_kor_tpu/models/vocabulary.py``
-(the DBoW2 replacement). A keyframe's BoW row is its descriptors' exact
+``sparse_bow_soft_from_desc``, ``sparse_l1_score``, the scheme constants
+and the training (``_kmedians_binary``, ``train_vocabulary``,
+``transform``, ``compute_idf``) of
+``orb_slam3_detailed_comments_kor_tpu/models/vocabulary.py`` (the DBoW2
+replacement). A keyframe's BoW row is its descriptors' exact
 top-``SOFT_K`` nearest leaf words with exp(-d/σ) soft weights, idf²
 term weights, L1 normalization and top-``TOPW`` truncation; two rows score
 by the L1 similarity Σ min(a_w, b_w).
+
+Training runs on the host in numpy with the reference's
+``np.random.RandomState`` draws in the reference's order, so the centroids
+come out bit-equal (the 0/1 distance products are exact in float32); the
+trained vocabulary's tensors live on the caller's device.
 
 The vocabulary asset is this package's own copy of the reference's
 ``default_vocab.npz`` (k = 10, depth = 5, 100,000 leaf words).
@@ -44,6 +51,84 @@ SOFT_K = 3
 SOFT_SIGMA = 8.0
 IDF_POW = 2.0
 
+
+def _kmedians_binary(desc: np.ndarray, k: int, iters: int, rng) -> np.ndarray:
+    """k-medians over binary descriptors (majority vote medians)."""
+    n = desc.shape[0]
+    if n <= k:
+        cent = np.zeros((k, desc.shape[1]), np.float32)
+        cent[:n] = desc
+        return cent
+    idx = rng.choice(n, k, replace=False)
+    cent = desc[idx].astype(np.float32)
+    for _ in range(iters):
+        d = (
+            desc.sum(1)[:, None] + cent.sum(1)[None, :]
+            - 2.0 * desc.astype(np.float32) @ cent.T
+        )
+        assign = d.argmin(1)
+        for c in range(k):
+            m = assign == c
+            if m.sum() > 0:
+                cent[c] = (desc[m].mean(0) > 0.5).astype(np.float32)
+            else:
+                cent[c] = desc[rng.randint(n)]
+    return cent
+
+
+def train_vocabulary(
+    descriptors: np.ndarray, k: int = 10, depth: int = 3, iters: int = 8,
+    seed: int = 0, device="cuda",
+) -> Vocabulary:
+    """Hierarchical k-medians training (host-side, one-time).
+
+    descriptors: [N,256] uint8 bits. Returns a Vocabulary with uniform idf
+    (refined later by ``compute_idf`` over a corpus) on ``device``, the
+    card unless the caller names another.
+    """
+    rng = np.random.RandomState(seed)
+    desc = np.asarray(descriptors).astype(np.float32)
+    levels = []
+    assignments = np.zeros((desc.shape[0],), np.int64)
+    n_clusters = 1
+    for _ in range(depth):
+        cents = np.zeros((n_clusters * k, 256), np.float32)
+        new_assign = np.zeros_like(assignments)
+        for c in range(n_clusters):
+            m = assignments == c
+            sub = desc[m]
+            cent = _kmedians_binary(sub, k, iters, rng)
+            cents[c * k:(c + 1) * k] = cent
+            if m.sum() > 0:
+                d = (
+                    sub.sum(1)[:, None] + cent.sum(1)[None, :]
+                    - 2.0 * sub @ cent.T
+                )
+                new_assign[m] = c * k + d.argmin(1)
+        levels.append(cents)
+        assignments = new_assign
+        n_clusters *= k
+    centroids = np.concatenate(levels, axis=0)
+    return Vocabulary(
+        centroids=torch.from_numpy(centroids).to(device),
+        k=k,
+        depth=depth,
+        idf=torch.ones((k ** depth,), dtype=torch.float32, device=device),
+    )
+
+
+def compute_idf(vocab: Vocabulary, word_lists, n_docs: int) -> Vocabulary:
+    """Refresh idf from a corpus: idf_w = log(n_docs / (1 + df_w)) + 1,
+    floored at 1e-3; on the vocabulary's device."""
+    df = np.zeros((vocab.n_words,), np.float32)
+    for words in word_lists:
+        ws = np.unique(np.asarray(words.cpu() if isinstance(words, torch.Tensor) else words))
+        ws = ws[ws >= 0]
+        df[ws] += 1
+    idf = np.log(max(n_docs, 1) / (1.0 + df)) + 1.0
+    return vocab._replace(idf=torch.from_numpy(np.maximum(idf, 1e-3).astype(np.float32)).to(vocab.idf.device))
+
+
 _DEFAULT_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "default_vocab.npz")
 _DEFAULT_CACHE = {}
 
@@ -71,6 +156,25 @@ def load_default(device="cuda") -> Vocabulary:
 def _level_offset(k: int, lvl: int) -> int:
     """Start index of level ``lvl`` (0-based) in the flat centroid array."""
     return sum(k ** (l + 1) for l in range(lvl))
+
+
+def transform(vocab: Vocabulary, desc_bits: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Descriptors -> word ids by the hierarchical descent
+    (TemplatedVocabulary::transform): [N,256] {0,1} -> [N] int32, -1 where
+    invalid. At each level only the k children of the current node are
+    compared; the distances are f32 sums of 0/1 products (exact), and
+    argmin ties take the lowest child (F4)."""
+    d = desc_bits.to(torch.float32)
+    dev = d.device
+    node = torch.zeros((d.shape[0],), dtype=torch.int64, device=dev)
+    kids = torch.arange(vocab.k, device=dev)
+    d_sum = torch.sum(d, dim=1, keepdim=True)
+    for lvl in range(vocab.depth):
+        off = _level_offset(vocab.k, lvl)
+        cents = vocab.centroids[off + node[:, None] * vocab.k + kids[None, :]]  # [N,k,256]
+        dist = d_sum + torch.sum(cents, dim=2) - 2.0 * torch.sum(d[:, None, :] * cents, dim=2)
+        node = node * vocab.k + torch.argmin(dist, dim=1)
+    return torch.where(valid, node, -1).to(torch.int32)
 
 
 def _k_argmin(dist: torch.Tensor, kk: int):
@@ -160,6 +264,11 @@ def sparse_bow_soft_from_desc(
     v = v / torch.clamp(torch.sum(v), min=1e-9)
     wts, out_ids = top_k_stable(v, topw)
     out_ids = torch.where(wts > 0, out_ids, -1)
+    if W < topw:
+        # a vocabulary of fewer words than a row's slots (one trained
+        # online): the slots past its words stay empty (ROADMAP F30)
+        wts = torch.cat([wts, wts.new_zeros(topw - W)])
+        out_ids = torch.cat([out_ids, out_ids.new_full((topw - W,), -1)])
     return out_ids.to(torch.int32), wts
 
 

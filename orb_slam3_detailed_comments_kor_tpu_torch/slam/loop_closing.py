@@ -1,6 +1,7 @@
 """Loop closing: place recognition, loop correction, pose graph, global BA.
 
-Port of ``LoopCloser`` (with a given vocabulary) and the device programs of
+Port of ``LoopCloser`` (with a given vocabulary, or one it trains online
+from its first keyframes) and the device programs of
 ``orb_slam3_detailed_comments_kor_tpu/slam/loop_closing.py``
 (``LoopClosing::Run``): per keyframe a BoW candidate search over
 covisibility groups (``_detect_core``), temporal-consistency gating,
@@ -59,6 +60,8 @@ class LoopCloser:
         # sparse per-keyframe BoW rows: word ids [K, TOPW] (-1 pad) and
         # L1-normalized weights, on the vocabulary's device
         self.db_words = self.db_wts = None
+        # with no vocabulary, keyframe descriptors buffered to train one
+        self._train_buf = []
         if vocab is not None:
             dev = vocab.idf.device
             self.db_words = torch.full((max_kf, voc.TOPW), -1, dtype=torch.int32, device=dev)
@@ -85,10 +88,32 @@ class LoopCloser:
     def add_keyframe(self, kf_idx: int, desc_bits, valid) -> None:
         """Register a keyframe in the BoW database (KeyFrameDatabase::add)."""
         if self.vocab is None:
-            raise NotImplementedError("training a vocabulary online is not ported")
+            self._train_online(desc_bits, valid)
+            return
         ids, wts = _add_kf_core(self.vocab, desc_bits, valid)
         self.db_words[kf_idx] = ids
         self.db_wts[kf_idx] = wts
+
+    def _train_online(self, desc_bits, valid) -> None:
+        """Buffer a keyframe's valid descriptors (one host read); at 3·k^depth
+        descriptors or 4 keyframes train a vocabulary on the buffer (6
+        k-medians iterations) and fill the database rows of the buffered
+        keyframes, in buffer order, as the reference does."""
+        both = torch.cat([desc_bits.to(torch.uint8), valid.to(torch.uint8)[:, None]], dim=1).cpu().numpy()
+        self._train_buf.append(both[both[:, -1] > 0, :-1])
+        if sum(len(b) for b in self._train_buf) < 3 * self.vocab_k ** self.vocab_depth and len(self._train_buf) < 4:
+            return
+        dev = desc_bits.device
+        self.vocab = voc.train_vocabulary(np.concatenate(self._train_buf, axis=0), k=self.vocab_k,
+                                          depth=self.vocab_depth, iters=6, device=dev)
+        self.db_words = torch.full((self.max_kf, voc.TOPW), -1, dtype=torch.int32, device=dev)
+        self.db_wts = torch.zeros((self.max_kf, voc.TOPW), dtype=torch.float32, device=dev)
+        for idx, d in enumerate(self._train_buf):
+            if len(d):
+                ids, wts = voc.sparse_bow_soft_from_desc(
+                    self.vocab, torch.from_numpy(d).to(dev), torch.ones((d.shape[0],), dtype=torch.bool, device=dev))
+                self.db_words[idx] = ids
+                self.db_wts[idx] = wts
 
     def compact(self, new_of_old) -> None:
         """Remap database rows after keyframe-slot compaction: row r moves

@@ -170,6 +170,52 @@ def _concat_maps(ms_old: msx.MapState, ms_cur: msx.MapState, n_kf_old: int, R_d,
     return ms, kf_dst, n_total, lm_overflow
 
 
+def _nearest_old(pos, old_mask):
+    """Per landmark slot, the nearest original landmark and its squared
+    distance, over every slot pair in 1024-row blocks (a fixed shape: no
+    host read)."""
+    L = pos.shape[0]
+    axes = pos.T.contiguous()  # [3, L]: one contiguous row per coordinate
+    chunk = min(1024, L)
+    nearest, near_d2 = [], []
+    for c0 in range(0, L, chunk):
+        d2 = None
+        for a in axes:  # (dx² + dy²) + dz², the reference's order
+            d = a[c0:c0 + chunk, None] - a[None, :]
+            d2 = d * d if d2 is None else d2 + d * d
+        d2 = torch.where(old_mask[None, :], d2, float("inf"))
+        nb = torch.argmin(d2, dim=1)
+        nearest.append(nb)
+        near_d2.append(torch.gather(d2, 1, nb[:, None])[:, 0])
+    return torch.cat(nearest), torch.cat(near_d2)
+
+
+def _nearest_old_compact(pos, old_mask, new_mask):
+    """``_nearest_old`` for the rows of new landmarks only, over the
+    columns of original ones (the CPU's path: it reads the masks, which
+    costs nothing there). A new row's nearest original landmark and
+    distance are bit-equal to ``_nearest_old``'s: the same squares summed
+    in the same order, and the first minimum among the original columns in
+    slot order; other rows get slot 0 at an infinite distance, which no
+    caller reads (they are never fused)."""
+    L = pos.shape[0]
+    nearest = torch.zeros((L,), dtype=torch.int64)
+    near_d2 = torch.full((L,), float("inf"), dtype=pos.dtype)
+    rows, cols = torch.nonzero(new_mask)[:, 0], torch.nonzero(old_mask)[:, 0]
+    if len(rows) == 0 or len(cols) == 0:
+        return nearest, near_d2
+    pr, pc = pos[rows].T.contiguous(), pos[cols].T.contiguous()
+    for c0 in range(0, len(rows), 1024):
+        d2 = None
+        for a, b in zip(pr, pc):  # (dx² + dy²) + dz², the reference's order
+            d = a[c0:c0 + 1024, None] - b[None, :]
+            d2 = d * d if d2 is None else d2 + d * d
+        nb = torch.argmin(d2, dim=1)
+        nearest[rows[c0:c0 + 1024]] = cols[nb]
+        near_d2[rows[c0:c0 + 1024]] = torch.gather(d2, 1, nb[:, None])[:, 0]
+    return nearest, near_d2
+
+
 def fuse_duplicate_landmarks(
     ms: msx.MapState,
     src_is_new: torch.Tensor,
@@ -190,22 +236,13 @@ def fuse_duplicate_landmarks(
     old_mask = ms.lm_valid & ~src_is_new
     new_mask = ms.lm_valid & src_is_new
     pos = ms.lm_pos
-    axes = pos.T.contiguous()  # [3, L]: one contiguous row per coordinate
-    chunk = min(1024, L)
-    nearest, near_d2 = [], []
-    for c0 in range(0, L, chunk):
-        d2 = None
-        for a in axes:  # (dx² + dy²) + dz², the reference's order
-            d = a[c0:c0 + chunk, None] - a[None, :]
-            d2 = d * d if d2 is None else d2 + d * d
-        d2 = torch.where(old_mask[None, :], d2, float("inf"))
-        nb = torch.argmin(d2, dim=1)
-        nearest.append(nb)
-        near_d2.append(torch.gather(d2, 1, nb[:, None])[:, 0])
-    nearest = torch.cat(nearest)
+    if pos.device.type == "cpu":
+        nearest, near_d2 = _nearest_old_compact(pos, old_mask, new_mask)
+    else:
+        nearest, near_d2 = _nearest_old(pos, old_mask)
     # the reference squares its traced f32 radius in f32
     r2 = float(np.float32(radius) * np.float32(radius))
-    near_ok = torch.cat(near_d2) < r2
+    near_ok = near_d2 < r2
     ham = torch.sum(
         orb_ops.unpack_descriptors(ms.lm_desc) != orb_ops.unpack_descriptors(ms.lm_desc[nearest]),
         dim=-1,

@@ -361,8 +361,8 @@ class SlamSystem:
         cam = self.cfg.camera
         self.n_frames += 1
         self._check_timestamp_jump(t)
-        img_l = torch.as_tensor(img_l, dtype=torch.float32, device=self.device)
-        img_r = torch.as_tensor(img_r, dtype=torch.float32, device=self.device)
+        img_l = self._upload(img_l)
+        img_r = self._upload(img_r)
         if self.stereo_fisheye:
             if self.state == TrackingState.NOT_INITIALIZED:
                 orb = self.cfg.orb
@@ -467,13 +467,12 @@ class SlamSystem:
         self._after_dispatch(out, t)
         return out
 
-    # ------------------------------------------------------------------
-    # RGB-D mode (System::TrackRGBD)
-    # ------------------------------------------------------------------
     def _upload(self, x):
         """A host array as a float32 tensor on the system's device: one
         non-blocking copy from pinned memory on the card (a pageable copy
-        would wait for the stream); tensors are moved as they are."""
+        would wait for the stream); tensors are moved as they are. Every
+        ``track_*`` entry point takes its images and depth maps through
+        it."""
         if isinstance(x, torch.Tensor):
             return x.to(self.device, torch.float32)
         host = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))
@@ -481,6 +480,9 @@ class SlamSystem:
             return host
         return host.pin_memory().to(self.device, non_blocking=True)
 
+    # ------------------------------------------------------------------
+    # RGB-D mode (System::TrackRGBD)
+    # ------------------------------------------------------------------
     def track_rgbd(self, img, depth_map, t: float) -> int:
         """Feed one RGB-D frame: a gray image [H, W] and its metric depth
         [H, W] (arrays or tensors). Returns the tracking state."""
@@ -526,7 +528,7 @@ class SlamSystem:
         state."""
         self.n_frames += 1
         self._check_timestamp_jump(t)
-        img = torch.as_tensor(img, dtype=torch.float32, device=self.device)
+        img = self._upload(img)
         if self.state == TrackingState.NOT_INITIALIZED:
             orb = self.cfg.orb
             frame = frontend.process_mono(
@@ -1315,8 +1317,8 @@ class SlamSystem:
             self._last_frame_time = t
             return st
         pred = self._advance_imu(t)
-        img_l = torch.as_tensor(img_l, dtype=torch.float32, device=self.device)
-        img_r = torch.as_tensor(img_r, dtype=torch.float32, device=self.device)
+        img_l = self._upload(img_l)
+        img_r = self._upload(img_r)
         track = self._track_fisheye_fused if self.stereo_fisheye else self._track
         if pred is not None:
             R_pred, t_pred, v2 = pred
@@ -1355,7 +1357,7 @@ class SlamSystem:
             return st
         self.n_frames += 1
         pred = self._advance_imu(t)
-        img = torch.as_tensor(img, dtype=torch.float32, device=self.device)
+        img = self._upload(img)
         if pred is not None:
             R_pred, t_pred, v2 = pred
             out = self._track_mono_fused(img, t, override_pred=(R_pred, t_pred))

@@ -8,7 +8,9 @@ is a runtime feature: nested stage spans accumulate on host and summaries
 are structured JSON. Port of ``StageTimer`` from
 ``orb_slam3_detailed_comments_kor_tpu/utils/timing.py``; the spans time
 the host (a span around device work times its dispatch unless the caller
-synchronises).
+synchronises). ``torch_profile`` takes the place of the reference's
+``jax_profile``: ``torch.profiler`` around any block, device kernels
+included.
 
 Overhead when disabled: one attribute check per span.
 """
@@ -18,7 +20,7 @@ from __future__ import annotations
 import contextlib
 import json
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 
 class StageTimer:
@@ -80,3 +82,26 @@ class StageTimer:
                 f"{s['p95_ms']:>8.2f} {s['max_ms']:>8.2f}"
             )
         return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def torch_profile(logdir: Optional[str]):
+    """Profile a block with ``torch.profiler`` (host activity, and the
+    card's kernels where there is a card) and write a Chrome trace into
+    ``logdir``. With no ``logdir`` it does nothing, as the reference's
+    ``jax_profile``."""
+    if not logdir:
+        yield
+        return
+    import os
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(logdir, f"trace_{os.getpid()}_{time.time_ns()}.json"))

@@ -29,7 +29,14 @@ stereo-fisheye and monocular KB8 passes (``chip_smoke.sensor_config(kind,
 small=True)``) on the card against the CPU (the same keyframes and
 counters, poses within TRANS_TOL / ROT_TOL; the monocular KB8 pass with
 both sides resumed from the CPU's map, made on eight threads, right after
-its initialization, both tracking, centres within MONO_TRANS_TOL).
+its initialization, both tracking, centres within MONO_TRANS_TOL); and
+the port's dataset runner on the small EuRoC-layout sequence of the CPU
+runner test, card against CPU (the same keyframe frames, poses within
+TRANS_TOL / ROT_TOL); tracked frames of the small stereo,
+stereo-inertial and monocular passes fed numpy images under the sync
+debug mode (no synchronizing call outside the batched decision read); and
+a loop closer training its vocabulary online, card against CPU (the same
+centroids, database rows within 1e-5).
 """
 
 import pytest
@@ -376,3 +383,90 @@ def test_small_mono_kb8_pass_card_matches_cpu(dev, tmp_path):
     d_c, d_r = chip_smoke.trajectory_diff(*(tuple(a[-n:] for a in s.trajectory_arrays()) for s in (card, host)))
     assert d_c.max() <= chip_smoke.MONO_TRANS_TOL and d_r.max() <= chip_smoke.ROT_TOL, (
         d_c.round(5).tolist(), d_r.round(5).tolist())
+
+
+def test_small_runner_card_matches_cpu(dev, tmp_path):
+    # the port's dataset runner on the CPU runner test's small EuRoC-layout
+    # sequence (chip_smoke.small_euroc_sequence, stereo mode), on the card
+    # and on the CPU: the same keyframe frames and counters, centres within
+    # TRANS_TOL and rotations within ROT_TOL
+    from orb_slam3_detailed_comments_kor_tpu_torch.examples import run_dataset
+    from orb_slam3_detailed_comments_kor_tpu_torch.io import native_host
+    from orb_slam3_detailed_comments_kor_tpu_torch.slam import system as tsys
+
+    try:  # the native decoder where the machine can build it (libpng), else PIL
+        native_host.load()
+        decoder = "native"
+    except Exception:
+        decoder = "python"
+    seq, settings, gt, _ = chip_smoke.small_euroc_sequence(str(tmp_path / "euroc"))
+    out = {}
+    for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        argv = ["--mode", "stereo", "--dataset", "euroc", "--seq", seq, "--settings", settings, "--gt", gt,
+                "--out", str(tmp_path / f"{name}.csv")]
+        with chip_smoke.keyframes_recorded(tsys.SlamSystem, "track_stereo", {}) as rec:
+            res = run_dataset.main(argv, device=device)
+        out[name] = (res, rec["kf_at"])
+    (card, kf_card), (host, kf_host) = out["card"], out["cpu"]
+    assert card["slam"].device.type == "cuda" and card["decoder"] == host["decoder"] == decoder
+    assert kf_card == kf_host and len(kf_card) >= 2 and card["slam"].stats == host["slam"].stats
+    d_c, d_r = chip_smoke.trajectory_diff(card["slam"].trajectory_arrays(), host["slam"].trajectory_arrays())
+    assert d_c.max() <= chip_smoke.TRANS_TOL and d_r.max() <= chip_smoke.ROT_TOL
+
+
+@pytest.mark.parametrize("sensor", ["stereo", "stereo_inertial", "mono"])
+def test_tracked_frames_fed_host_arrays_never_sync(dev, sensor):
+    # the small passes fed numpy images (and IMU samples): a tracked frame
+    # makes no synchronizing call outside the batched decision read; each
+    # host image goes up with one non-blocking copy from pinned memory
+    cpu = torch.device("cpu")
+    records, lat = [], []
+    watch = chip_smoke.watched_frames(records, lat, block=False)
+    if sensor == "stereo":
+        cfg = chip_smoke.loop_config(small=True)
+        _, frames = chip_smoke.render_loop_sequence(cfg, 16, cpu)
+        chip_smoke.run_loop(cfg, [(a.numpy(), b.numpy()) for a, b in frames], dev, on_frame=watch)
+    elif sensor == "stereo_inertial":
+        cfg = chip_smoke.si_config(small=True)
+        si = chip_smoke.SMALL_SI
+        _, frames, imu = chip_smoke.render_si_sequence(cfg, si["frames"], cpu, fps=si["fps"])
+        chip_smoke.run_si(cfg, [(a.numpy(), b.numpy()) for a, b in frames], imu, dev, on_frame=watch,
+                          fps=si["fps"])
+    else:
+        cfg = chip_smoke.mono_config(small=True)
+        _, imgs = chip_smoke.render_mono_sequence(cfg, 16, cpu, speed=chip_smoke.SMALL_MONO["speed"])
+        chip_smoke.run_mono(cfg, [a.numpy() for a in imgs], dev, on_frame=watch)
+    tracked = [f for f in records if f["kind"] in ("tracking", "keyframe")]
+    assert len(tracked) >= 2, chip_smoke.sync_summary(records)
+    assert sum(f["syncs"] for f in tracked) == 0, [f["sync_calls"] for f in tracked if f["syncs"]]
+
+
+def test_online_vocabulary_card_matches_cpu(dev):
+    # LoopCloser(vocab=None) trained online from four keyframes' descriptors
+    # on the card and on the CPU: the same centroids, and the backfilled
+    # database rows (dense over the words) within 1e-5
+    import numpy as np
+
+    from orb_slam3_detailed_comments_kor_tpu_torch.slam import loop_closing
+
+    rng = np.random.RandomState(11)
+    protos = rng.randint(0, 2, (40, 256))
+    kfs = []
+    for _ in range(4):
+        d = np.logical_xor(protos[rng.randint(0, 40, 600)], rng.rand(600, 256) < 0.05).astype(np.uint8)
+        kfs.append((torch.from_numpy(d), torch.from_numpy(rng.rand(600) > 0.1)))
+    lcs = {}
+    for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        lc = loop_closing.LoopCloser(max_kf=16, vocab=None)
+        for i, (d, v) in enumerate(kfs):
+            lc.add_keyframe(i, d.to(device), v.to(device))
+        lcs[name] = lc
+    card, host = lcs["card"], lcs["cpu"]
+    assert card.vocab.centroids.device.type == "cuda" and card.db_words.device.type == "cuda"
+    assert torch.equal(card.vocab.centroids.cpu(), host.vocab.centroids)
+
+    def dense(lc):
+        ids, wts = lc.db_words.cpu().long(), lc.db_wts.cpu()
+        out = torch.zeros((ids.shape[0], lc.vocab.n_words + 1))
+        return out.scatter_add_(1, torch.where(ids >= 0, ids, lc.vocab.n_words), torch.where(ids >= 0, wts, 0.0))
+    assert float((dense(card) - dense(host)).abs().max()) <= 1e-5

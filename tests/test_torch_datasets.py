@@ -1,0 +1,429 @@
+"""The port's host side against the JAX package on the same files: settings,
+rectification, decoding, the sequence loaders, the online node, the
+leveled logger and the profiler block.
+
+The port keeps its own copies of ``io/datasets.py``, ``io/native_host.py``,
+``io/online.py`` and ``utils/verbose.py``; both packages read the same
+files here, and both native libraries are built from the repository's
+``native/host_ops.cpp`` (the port's into its own ``_build/``).
+
+Tolerances: settings configs field-equal (``dataclasses.asdict``) and
+their rectification blocks exactly; ``undistort_rectify_map`` and
+``remap_bilinear`` bit-equal; the native remap against numpy within 1e-4;
+the native decode against PIL within 0.5 grey levels (exactly for 8-bit
+PNGs); loaders, IMU windows and the online node's call logs exactly.
+"""
+
+import dataclasses
+import json
+import os
+import threading
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+import chip_smoke  # noqa: E402
+from test_datasets_native import EUROC_YAML  # noqa: E402
+from orb_slam3_detailed_comments_kor_tpu.io import datasets as jds  # noqa: E402
+from orb_slam3_detailed_comments_kor_tpu.io import native_host as jnh  # noqa: E402
+from orb_slam3_detailed_comments_kor_tpu.io import online as jon  # noqa: E402
+from orb_slam3_detailed_comments_kor_tpu.utils import verbose as jverbose  # noqa: E402
+from orb_slam3_detailed_comments_kor_tpu_torch.io import datasets as tds  # noqa: E402
+from orb_slam3_detailed_comments_kor_tpu_torch.io import native_host as tnh  # noqa: E402
+from orb_slam3_detailed_comments_kor_tpu_torch.io import online as ton  # noqa: E402
+from orb_slam3_detailed_comments_kor_tpu_torch.utils import timing as ttiming  # noqa: E402
+from orb_slam3_detailed_comments_kor_tpu_torch.utils import verbose as tverbose  # noqa: E402
+
+# TUM-VI's 512x512 stereo-fisheye settings (TUM_512.yaml's layout: a second
+# Kannala-Brandt camera and the right-to-left extrinsic Tlr)
+TUMVI_YAML = """%YAML:1.0
+Camera.type: "KannalaBrandt8"
+Camera.fx: 190.97847715128717
+Camera.fy: 190.9733070521226
+Camera.cx: 254.93170605935475
+Camera.cy: 256.8974428996504
+Camera.k1: 0.0034823894022493434
+Camera.k2: 0.0007150348452162257
+Camera.k3: -0.0020532361418706202
+Camera.k4: 0.00020293673591811182
+Camera2.fx: 190.44236969414825
+Camera2.fy: 190.4344384721956
+Camera2.cx: 252.59949716835982
+Camera2.cy: 254.91723064636983
+Camera2.k1: 0.0034003170790442797
+Camera2.k2: 0.001766278153469831
+Camera2.k3: -0.00266312569781606
+Camera2.k4: 0.0003299517423931039
+Tlr: !!opencv-matrix
+  rows: 3
+  cols: 4
+  dt: f
+  data: [ 0.999999445773493, 0.000791687752817, 0.000694034010224, 0.101063427414194,
+          -0.000823363992158, 0.998899461915674, 0.046895490788700, 0.001946204678584,
+          -0.000656143613644, -0.046896036240590, 0.998899560014887, 0.001015350132563]
+Camera.width: 512
+Camera.height: 512
+Camera.fps: 20.0
+Camera.bf: 19.3079
+Camera.RGB: 1
+ThDepth: 40.0
+Tbc: !!opencv-matrix
+  rows: 4
+  cols: 4
+  dt: f
+  data: [-0.9995250378696743, 0.0075019185074052044, -0.02989013031643309, 0.045574835649698026,
+         0.029615343885863205, -0.03439736061393144, -0.998969345370175, -0.071161801837997044,
+         -0.008522328211654736, -0.9993800792498829, 0.03415885127385616, -0.044681254117144367,
+         0.0, 0.0, 0.0, 1.0]
+IMU.NoiseGyro: 0.00016
+IMU.NoiseAcc: 0.0028
+IMU.GyroWalk: 0.000022
+IMU.AccWalk: 0.00086
+IMU.Frequency: 200
+ORBextractor.nFeatures: 1500
+ORBextractor.scaleFactor: 1.2
+ORBextractor.nLevels: 8
+ORBextractor.iniThFAST: 20
+ORBextractor.minThFAST: 7
+"""
+
+# a rectification with distortion and a rotated R on both sides (EuRoC's
+# LEFT/RIGHT blocks with a 1.5 degree tilt), so the maps are far from the grid
+_K = np.array([[458.654, 0.0, 367.215], [0.0, 457.296, 248.375], [0.0, 0.0, 1.0]])
+_D = np.array([-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05, 0.0])
+_c, _s = np.cos(np.radians(1.5)), np.sin(np.radians(1.5))
+_R = np.array([[_c, 0.0, _s], [0.0, 1.0, 0.0], [-_s, 0.0, _c]]) @ np.array([[1.0, 0, 0], [0, _c, -_s], [0, _s, _c]])
+_P = np.array([[435.2046959714599, 0, 367.4517211914062, -47.9], [0, 435.2046959714599, 252.2008514404297, 0],
+               [0, 0, 1, 0]])
+SEQ_T0_NS = chip_smoke.DS_T0_NS
+
+
+@pytest.fixture(scope="module")
+def files(tmp_path_factory):
+    """The settings files and a small EuRoC / TUM RGB-D / KITTI layout,
+    with absolute EuRoC stamps, written once."""
+    root = tmp_path_factory.mktemp("torch_datasets")
+    out = {}
+    for name, text in (("euroc", EUROC_YAML), ("tumvi", TUMVI_YAML)):
+        p = root / f"{name}.yaml"
+        p.write_text(text)
+        out[name] = str(p)
+    rng = np.random.RandomState(1)
+    seq = root / "euroc"
+    for cam in ("cam0", "cam1"):
+        (seq / "mav0" / cam / "data").mkdir(parents=True)
+        lines = ["#timestamp [ns],filename"]
+        for i in range(5):
+            tn = SEQ_T0_NS + i * 50_000_000
+            chip_smoke.write_png_gray(str(seq / "mav0" / cam / "data" / f"{tn}.png"),
+                                      rng.uniform(0, 255, (48, 64)))
+            lines.append(f"{tn},{tn}.png")
+        (seq / "mav0" / cam / "data.csv").write_text("\n".join(lines))
+    (seq / "mav0" / "imu0").mkdir(parents=True)
+    rows = ["#timestamp,wx,wy,wz,ax,ay,az"]
+    for i in range(60):
+        w, a = rng.randn(3) * 0.1, rng.randn(3) + [0, -9.8, 0]
+        rows.append(f"{SEQ_T0_NS - 10_000_000 + i * 5_000_000}," + ",".join(f"{v:.9g}" for v in (*w, *a)))
+    (seq / "mav0" / "imu0" / "data.csv").write_text("\n".join(rows))
+    out["euroc_seq"] = str(seq)
+    tum = root / "tum"
+    (tum / "rgb").mkdir(parents=True)
+    (tum / "depth").mkdir(parents=True)
+    rgb, dep = ["# rgb"], ["# depth"]
+    for i in range(4):
+        t = 1305031102.175304 + i * 0.033
+        rn, dn = f"rgb/{t:.6f}.png", f"depth/{t + 0.004 * (i - 1):.6f}.png"
+        chip_smoke.write_png_gray(str(tum / rn), rng.uniform(0, 255, (32, 40)))
+        chip_smoke.write_png_gray(str(tum / dn), rng.uniform(0, 255, (32, 40)))
+        rgb.append(f"{t:.6f} {rn}")
+        dep.append(f"{t + 0.004 * (i - 1):.6f} {dn}")
+    rgb.append(f"{1305031102.175304 + 9.0:.6f} rgb/none.png")  # no depth within 0.02 s
+    (tum / "rgb.txt").write_text("\n".join(rgb))
+    (tum / "depth.txt").write_text("\n".join(dep))
+    out["tum_seq"] = str(tum)
+    kitti = root / "kitti"
+    for d in ("image_0", "image_1"):
+        (kitti / d).mkdir(parents=True)
+    for i in range(3):
+        for d in ("image_0", "image_1") if i < 2 else ("image_0",):
+            chip_smoke.write_png_gray(str(kitti / d / f"{i:06d}.png"), rng.uniform(0, 255, (20, 30)))
+    (kitti / "times.txt").write_text("0.000000e+00\n1.037359e-01\n2.073970e-01\n")
+    out["kitti_seq"] = str(kitti)
+    return out
+
+
+@pytest.mark.parametrize("name,sensor", [("euroc", "IMU_STEREO"), ("euroc", "STEREO"), ("tumvi", "IMU_STEREO"),
+                                         ("tumvi", "MONOCULAR")])
+def test_load_settings_equal(files, name, sensor):
+    """Every field of the configs built from one settings file, the KB8
+    rig's ``Camera2.*`` and ``Tlr`` included, and the rectification blocks."""
+    from orb_slam3_detailed_comments_kor_tpu import config as jcfg
+
+    j = jds.load_settings(files[name], getattr(jcfg.SensorType, sensor))
+    t = tds.load_settings(files[name], getattr(jcfg.SensorType, sensor))
+    assert dataclasses.asdict(j.config) == dataclasses.asdict(t.config)
+    if name == "tumvi":
+        assert t.config.camera.model == "kannala_brandt8" and len(t.config.camera.right_intrinsics) == 8
+        assert len(t.config.camera.tlr) == 12 and t.rectify is None
+    else:
+        for f in dataclasses.fields(j.rectify):
+            assert np.array_equal(getattr(j.rectify, f.name), getattr(t.rectify, f.name)), f.name
+    assert j.raw.keys() == t.raw.keys()
+    for k, v in j.raw.items():
+        assert np.array_equal(v, t.raw[k]) if isinstance(v, np.ndarray) else v == t.raw[k], k
+
+
+@pytest.mark.parametrize("side", ["left", "right"])
+def test_rectification_bit_equal(side):
+    """``undistort_rectify_map`` on a distorted, rotated rectification and
+    ``remap_bilinear`` through its maps: bit-equal."""
+    P = _P if side == "right" else np.c_[_P[:, :3], np.zeros(3)]
+    R = _R if side == "right" else _R.T
+    jm = jds.undistort_rectify_map(_K, _D, R, P, 96, 80)
+    tm = tds.undistort_rectify_map(_K, _D, R, P, 96, 80)
+    assert all(np.array_equal(a, b) for a, b in zip(jm, tm))
+    u = np.meshgrid(np.arange(96), np.arange(80))[0]
+    assert np.abs(jm[0] - u).max() > 1.0  # far from the identity
+    img = np.random.RandomState(2).uniform(0, 255, (80, 96)).astype(np.float32)
+    # sample inside the image: shift the maps into it
+    mx, my = jm[0] - jm[0].min() + 0.25, jm[1] - jm[1].min() + 0.25
+    assert np.array_equal(jds.remap_bilinear(img, mx, my), tds.remap_bilinear(img, mx, my))
+    assert np.array_equal(jds.remap_bilinear(img, *jm), tds.remap_bilinear(img, *jm))
+
+
+@pytest.fixture(scope="module")
+def nat():
+    """The port's native library, built from native/host_ops.cpp into the
+    port's _build/ (libpng and g++ are part of this environment)."""
+    return tnh.load()
+
+
+def test_native_build_location(nat):
+    """The port builds its own library under its _build/, keyed on the
+    source's hash, and loads it again without rebuilding."""
+    path = tnh.library_path()
+    assert os.path.dirname(path) == tnh.BUILD_DIR and os.path.exists(path)
+    assert os.path.basename(path).startswith("libhost_ops_") and tnh.load()._lib is nat._lib
+
+
+def test_native_remap_matches_numpy(nat):
+    rng = np.random.RandomState(5)
+    img = rng.uniform(0, 255, (48, 64)).astype(np.float32)
+    mx = rng.uniform(-2, 65, (48, 64)).astype(np.float32)
+    my = rng.uniform(-2, 49, (48, 64)).astype(np.float32)
+    a = nat.remap_bilinear(img, mx, my)
+    np.testing.assert_allclose(a, tds.remap_bilinear(img, mx, my), rtol=0, atol=1e-4)
+    assert np.array_equal(a, jnh.load().remap_bilinear(img, mx, my))
+
+
+@pytest.mark.parametrize("kind", ["png8_pil", "png8_stdlib", "png16_pil", "pgm"])
+def test_native_decode(nat, tmp_path, kind):
+    """The native decoder against PIL (8- and 16-bit PNGs), the stdlib PNG
+    writer's files and binary PGM; ``load_gray`` of both packages equal."""
+    from PIL import Image
+
+    rng = np.random.RandomState(3)
+    arr = rng.uniform(0, 255, (40, 56)).astype(np.uint8)
+    p = str(tmp_path / ("x.pgm" if kind == "pgm" else "x.png"))
+    if kind == "png8_pil":
+        Image.fromarray(arr, mode="L").save(p)
+    elif kind == "png8_stdlib":
+        chip_smoke.write_png_gray(p, arr)
+    elif kind == "png16_pil":
+        arr16 = (arr.astype(np.uint16) * 257 + rng.randint(0, 200, arr.shape)).astype(np.uint16)
+        Image.fromarray(arr16).save(p)
+    else:
+        with open(p, "wb") as f:
+            f.write(b"P5\n56 40\n255\n" + arr.tobytes())
+    out = nat.load_gray(p)
+    want = arr.astype(np.float32)
+    if kind.startswith("png"):
+        pil = np.asarray(Image.open(p)).astype(np.float32)
+        want = pil / 257.0 if kind == "png16_pil" else pil
+    np.testing.assert_allclose(out, want, rtol=0, atol=0.5 if kind == "png16_pil" else 0.0)
+    assert np.array_equal(tds.load_gray(p), jds.load_gray(p))
+
+
+def test_euroc_sequence_equal(files, tmp_path):
+    """Frames, absolute stamps (integer ns kept), IMU windows and the
+    timestamp filter."""
+    j, t = jds.EurocSequence(files["euroc_seq"]), tds.EurocSequence(files["euroc_seq"])
+    assert [dataclasses.astuple(f) for f in j.frames] == [dataclasses.astuple(f) for f in t.frames]
+    assert len(t) == 5 and t[0].t_ns == SEQ_T0_NS and t[0].right is not None
+    for i in range(1, 5):
+        got = t.imu.between(t[i - 1].t, t[i].t)
+        for a, b in zip(j.imu.between(j[i - 1].t, j[i].t), got):
+            assert np.array_equal(a, b)
+        assert len(got[0]) == 10  # 50 ms at 200 Hz, the sample at the frame's stamp included
+    stamps = tmp_path / "stamps.txt"
+    stamps.write_text("\n".join(str(f.t_ns) for f in t.frames[1:4:2]))
+    jf, tf = jds.EurocSequence(files["euroc_seq"], str(stamps)), tds.EurocSequence(files["euroc_seq"], str(stamps))
+    assert [f.t_ns for f in tf.frames] == [f.t_ns for f in jf.frames] == [t[1].t_ns, t[3].t_ns]
+
+
+def test_tum_and_kitti_sequences_equal(files):
+    """TUM RGB-D nearest-stamp association (a frame without a depth map
+    within 0.02 s is left out) and the KITTI layout (a frame without a
+    right image)."""
+    j, t = jds.TumRgbdSequence(files["tum_seq"]), tds.TumRgbdSequence(files["tum_seq"])
+    assert [dataclasses.astuple(f) for f in j.frames] == [dataclasses.astuple(f) for f in t.frames]
+    assert len(t) == 4 and all(f.depth for f in t.frames)
+    j, t = jds.KittiSequence(files["kitti_seq"]), tds.KittiSequence(files["kitti_seq"])
+    assert [dataclasses.astuple(f) for f in j.frames] == [dataclasses.astuple(f) for f in t.frames]
+    assert [f.right is None for f in t.frames] == [False, False, True]
+
+
+@pytest.mark.parametrize("native", [True, False])
+def test_stereo_feeder(files, nat, native, monkeypatch):
+    """The prefetching feeder's order and images (decode and rectify)
+    against ``load_gray`` + ``remap_bilinear``; without the native library
+    it decodes in Python and says so."""
+    seq = tds.EurocSequence(files["euroc_seq"])
+    mx, my = tds.undistort_rectify_map(_K, _D, np.eye(3), np.c_[_K, np.zeros(3)], 64, 48)
+    if not native:
+        monkeypatch.setattr(tnh, "load", lambda: (_ for _ in ()).throw(RuntimeError("no native library")))
+    feeder = tnh.StereoFeeder([f.left for f in seq.frames], [f.right for f in seq.frames], 48, 64,
+                              maps_l=(mx, my), maps_r=(mx, my), depth=3, workers=2)
+    assert feeder.native is native
+    got = list(feeder)
+    assert len(got) == len(seq)
+    for (left, right), f in zip(got, seq.frames):
+        for img, path in ((left, f.left), (right, f.right)):
+            want = tds.remap_bilinear(tds.load_gray(path), mx, my)
+            np.testing.assert_allclose(img, want, rtol=0, atol=1e-4 if native else 0.0)
+
+
+class _Recorder:
+    """A stand-in system: records each call of the node's sync loop."""
+
+    def __init__(self):
+        self.calls = []
+
+    def _log(self, name, t, *imgs, imu=None):
+        self.calls.append((name, t, tuple(float(np.asarray(i).ravel()[0]) for i in imgs),
+                           None if imu is None else [float(s[0]) for s in imu]))
+
+    def track_mono(self, img, t):
+        self._log("mono", t, img)
+
+    def track_stereo(self, a, b, t):
+        self._log("stereo", t, a, b)
+
+    def track_rgbd(self, a, d, t):
+        self._log("rgbd", t, a, d)
+
+    def track_mono_inertial(self, img, t, imu):
+        self._log("mono_inertial", t, img, imu=imu)
+
+    def track_stereo_inertial(self, a, b, t, imu):
+        self._log("stereo_inertial", t, a, b, imu=imu)
+
+
+def _drive(online, mode, script):
+    """Run ``script`` (a list of ("left"|"right"|"imu"|"step", t)) on a
+    node of ``online`` over a recorder; returns the calls, processed count,
+    drops and step results."""
+    sys_ = _Recorder()
+    node = online.OnlineNode(sys_, mode=mode, max_queue=3)
+    steps = []
+    for what, t in script:
+        if what == "imu":
+            node.publish_imu(t, np.full(3, t), np.zeros(3))
+        elif what == "step":
+            steps.append(node._step())
+        else:
+            getattr(node, f"publish_{what}")(t, np.full((2, 2), t, np.float32))
+    return sys_.calls, node.n_processed, node.left.n_dropped, node.right.n_dropped, steps
+
+
+NODE_SCRIPTS = {
+    # FIFO order and the oldest frames dropped past max_queue
+    "fifo_drop": ("stereo", [("left", 0.0), ("left", 0.05), ("left", 0.1), ("left", 0.15), ("left", 0.2)]
+                  + [("right", t) for t in (0.1, 0.15, 0.2)] + [("step", None)] * 4),
+    # the right stream starts two frames late: the older unmatched left frames go
+    "unmatched": ("stereo", [("left", 0.0), ("left", 0.05), ("right", 0.1), ("left", 0.1), ("step", None),
+                             ("right", 0.15), ("left", 0.151), ("step", None), ("step", None)]),
+    # a frame waits until an IMU sample newer than it arrives; its window is
+    # the samples up to its stamp
+    "imu_window": ("stereo_inertial", [("left", 0.0), ("right", 0.0), ("step", None), ("imu", -0.01),
+                                       ("step", None), ("imu", 0.002), ("step", None), ("left", 0.05),
+                                       ("right", 0.05), ("imu", 0.05), ("step", None), ("imu", 0.07),
+                                       ("step", None)]),
+    "mono_inertial": ("mono_inertial", [("imu", 0.01), ("left", 0.0), ("step", None), ("left", 0.02),
+                                        ("step", None), ("imu", 0.03), ("step", None)]),
+    "rgbd": ("rgbd", [("left", 0.0), ("right", 0.004), ("step", None), ("left", 0.03), ("step", None)]),
+    "mono": ("mono", [("left", 0.0), ("left", 0.1), ("step", None), ("step", None), ("step", None)]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(NODE_SCRIPTS))
+def test_online_node_equal(case):
+    """The port's OnlineNode and the reference's make the same calls, drops
+    and step results on the same published stream."""
+    mode, script = NODE_SCRIPTS[case]
+    got = _drive(ton, mode, script)
+    assert got == _drive(jon, mode, script)
+    assert got[1] >= 1
+    if case == "fifo_drop":
+        assert got[2] == 2 and [c[1] for c in got[0]] == [0.1, 0.15, 0.2]
+    if case == "imu_window":
+        assert got[0][0][3] == [-0.01] and got[0][1][3] == [0.002, 0.05]
+
+
+def test_online_node_threads_and_stop():
+    """Producer threads publish left, right and IMU; ``stop`` drains the
+    queues, surfaces nothing, and calls the system's ``flush_decisions``."""
+    rec = _Recorder()
+    rec.flushed = 0
+    rec.flush_decisions = lambda: setattr(rec, "flushed", rec.flushed + 1)
+    node = ton.OnlineNode(rec, mode="stereo_inertial", max_queue=40).start()
+    n = 30
+    threads = [threading.Thread(target=lambda: [node.publish_left(i * 0.05, np.full((2, 2), i)) for i in range(n)]),
+               threading.Thread(target=lambda: [node.publish_right(i * 0.05, np.full((2, 2), i)) for i in range(n)]),
+               threading.Thread(target=lambda: [node.publish_imu(i * 0.005, np.zeros(3), np.zeros(3))
+                                                for i in range(10 * n + 1)])]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    node.stop(drain=True, timeout=30.0)
+    assert node.n_processed == n and rec.flushed == 1
+    assert [c[1] for c in rec.calls] == [i * 0.05 for i in range(n)]
+    assert sum(len(c[3]) for c in rec.calls) == 10 * (n - 1) + 1
+    with pytest.raises(ValueError):
+        ton.OnlineNode(rec, mode="stereo_rgbd")
+
+
+def test_verbose_equal(capsys):
+    """The leveled logger prints at or below its level, to stderr, as the
+    reference's."""
+    out = []
+    for mod in (jverbose, tverbose):
+        v = mod.Verbose
+        v.set_th_verbosity(v.VERBOSITY_VERBOSE)
+        v.normal("a")
+        v.verbose("b")
+        v.debug("c")
+        v.print_mess("d", v.VERBOSITY_QUIET)
+        v.set_th_verbosity(v.VERBOSITY_QUIET)
+        v.normal("e")
+        err = capsys.readouterr().err
+        out.append([ln.split("] ", 1)[1] for ln in err.splitlines()])
+    assert out[0] == out[1] == ["a", "b", "d"]
+
+
+def test_torch_profile(tmp_path):
+    """``torch_profile`` writes a Chrome trace of the block into its folder,
+    and does nothing without one."""
+    with ttiming.torch_profile(None):
+        torch.ones(3).sum()
+    logdir = tmp_path / "prof"
+    with ttiming.torch_profile(str(logdir)):
+        (torch.ones(64, 64) @ torch.ones(64, 64)).sum()
+    traces = list(logdir.iterdir())
+    assert len(traces) == 1
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    assert any("mm" in e.get("name", "") for e in events)

@@ -178,6 +178,35 @@ def test_fuse_duplicate_landmarks_exact(radius):
     assert int(jn) == int(tn) and 30 < int(tn) < dup.size
 
 
+@pytest.mark.parametrize("case", ["ties", "no_old"])
+def test_fuse_nearest_cpu_path(case):
+    """The CPU's compacted nearest-original search (new rows against the
+    original columns only) gives every new landmark the fixed-shape
+    search's nearest slot and squared distance, bit for bit, on a map with
+    gaps, exact duplicates (ties go to the first slot) and invalid slots."""
+    rng = np.random.default_rng(21)
+    L = 2600
+    pos = rng.normal(0, 1, (L, 3)).astype(np.float32)
+    valid = rng.random(L) < 0.8
+    new = rng.random(L) < 0.3
+    if case == "ties":
+        pos[1200:1210] = pos[5]  # exact ties among originals
+        new[1200:1210] = new[5] = False
+        new[[7, 8]] = valid[[5, 7, 8]] = True
+        pos[[7, 8]] = pos[5]
+    else:
+        new[:] = valid
+    pos_t, old, nw = torch.from_numpy(pos), torch.from_numpy(valid & ~new), torch.from_numpy(valid & new)
+    n_full, d_full = tmm._nearest_old(pos_t, old)
+    n_cpu, d_cpu = tmm._nearest_old_compact(pos_t, old, nw)
+    rows = nw.numpy()
+    assert np.array_equal(n_cpu.numpy()[rows], n_full.numpy()[rows]) or case == "no_old"
+    assert np.array_equal(d_cpu.numpy()[rows], d_full.numpy()[rows])
+    assert np.isinf(d_cpu.numpy()[~rows]).all()
+    if case == "ties":
+        assert int(n_cpu[7]) == int(n_cpu[8]) == 5
+
+
 @pytest.mark.parametrize("case", range(4))
 def test_select_eviction_slots_exact(case):
     rng = np.random.default_rng(10 + case)

@@ -39,6 +39,9 @@ SLICE_MODULES = [
     "ops.imu", "optim.vi_ba", "optim.vi_init", "optim.vio", "slam.inertial",
     # the monocular and monocular-inertial paths
     "ops.twoview",
+    # the recorded-sequence and live-sensor entry points and the viewer
+    "utils.verbose", "io.native_host", "io.datasets", "io.online", "examples.run_dataset",
+    "examples.run_synthetic", "viz.viewer",
 ]
 # the functions of the RGB-D and fisheye paths, in the modules they extend
 SLICE_FUNCTIONS = [
@@ -47,6 +50,10 @@ SLICE_FUNCTIONS = [
     ("optim.factors", "with_rig_rows"), ("optim.factors", "_rig_select"), ("slam.tracking", "full_rgbd_step"),
     ("slam.tracking", "full_fisheye_step"), ("slam.system", "SlamSystem.track_rgbd"),
     ("slam.system", "SlamSystem._track_fisheye_fused"),
+    # online vocabulary training, the corridor scenes and the profiler block
+    ("models.vocabulary", "train_vocabulary"), ("models.vocabulary", "transform"),
+    ("models.vocabulary", "compute_idf"), ("io.synthetic", "corridor_scene"), ("io.synthetic", "wall_scene"),
+    ("io.synthetic", "CorridorTrajectory"), ("utils.timing", "torch_profile"),
 ]
 
 
@@ -120,7 +127,8 @@ def test_config_fields_equal(name):
      ("models.camera", "camera_params_from_config"), ("slam.system", "SlamSystem"),
      ("models.vocabulary", "load_default"), ("utils.prng", "key_from_bytes"),
      ("slam.inertial", "empty_inertial"), ("ops.imu", "identity_preintegrated"),
-     ("io.synthetic", "AnalyticTrajectory")],
+     ("io.synthetic", "AnalyticTrajectory"), ("examples.run_dataset", "main"), ("examples.run_synthetic", "main"),
+     ("models.vocabulary", "train_vocabulary"), ("io.synthetic", "corridor_scene"), ("io.synthetic", "wall_scene")],
 )
 def test_entry_points_default_to_cuda(module, name):
     """Entry points that make tensors from nothing put them on the card
@@ -147,7 +155,8 @@ def test_entry_points_default_to_cuda(module, name):
      ("ops.twoview", "reconstruct_two_views_hf"), ("slam.map_state", "apply_scale"),
      ("slam.frontend", "process_rgbd"), ("slam.frontend", "process_stereo_fisheye"),
      ("slam.tracking", "full_rgbd_step"), ("slam.tracking", "full_fisheye_step"),
-     ("slam.system", "SlamSystem.track_rgbd")],
+     ("slam.system", "SlamSystem.track_rgbd"), ("slam.loop_closing", "LoopCloser.add_keyframe"),
+     ("models.vocabulary", "transform"), ("models.vocabulary", "compute_idf")],
 )
 def test_entry_points_follow_their_inputs_device(module, name):
     """Entry points that work on a system's or a map's tensors take no

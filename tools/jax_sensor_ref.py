@@ -2,12 +2,13 @@
 
 Run from the root of a checkout, on a CPU:
 
-    JAX_PLATFORMS=cpu python tools/jax_sensor_ref.py --pass rgbd      # phase 11, REF_RGBD
-    JAX_PLATFORMS=cpu python tools/jax_sensor_ref.py --pass fisheye   # phase 12, REF_FISHEYE
+    JAX_PLATFORMS=cpu python tools/jax_sensor_ref.py --pass rgbd --frames 90     # phase 11, REF_RGBD
+    JAX_PLATFORMS=cpu python tools/jax_sensor_ref.py --pass fisheye --frames 60  # phase 12, REF_FISHEYE
     JAX_PLATFORMS=cpu python tools/jax_sensor_ref.py --pass fsi       # phase 13, REF_FSI
     JAX_PLATFORMS=cpu python tools/jax_sensor_ref.py --pass si --frames 90     # phase 8, REF_SI
     JAX_PLATFORMS=cpu python tools/jax_sensor_ref.py --pass mono --frames 70   # phase 9, REF_MONO
     JAX_PLATFORMS=cpu python tools/jax_sensor_ref.py --pass mi --frames 60     # phase 10, REF_MI
+    JAX_PLATFORMS=cpu python tools/jax_sensor_ref.py --pass euroc --frames 130  # phase 14, REF_EUROC
 
 ``rgbd``: bench.py's stereo camera and ORB settings (``bench.py:39-57``:
 480x752, fx 458, 1200 features, 8 levels, 64 keyframes, 16,384 landmarks,
@@ -39,6 +40,17 @@ two other float associations of the reference's:
 ``XLA_FLAGS=--xla_cpu_enable_fast_math=true`` and
 ``XLA_FLAGS=--xla_cpu_multi_thread_eigen=false``.
 
+``euroc``: phase 8's stereo-inertial data (bench.py's 480x752 pinhole pair
+on ``synthetic.AnalyticTrajectory`` at 20 fps with its 200 Hz samples),
+rendered by the JAX package, written by ``chip_smoke.write_euroc_sequence``
+in the EuRoC MAV layout (8-bit PNGs, ``imu0/data.csv``, the ground truth
+and a settings YAML with rectification blocks) with EuRoC-like absolute
+stamps from ``chip_smoke.DS_T0_NS``, into a temporary directory, and run by
+the repository's ``examples/run_dataset.py`` (``--mode stereo_inertial
+--dataset euroc``), as chip_smoke.py phase 14 runs the port's runner; the
+line adds the IMU-initialization frame and keyframes, the frames decided
+lost and the runner's ATE.
+
 Loop closing is on in all of them (the default). Each prints one JSON line:
 the final state, the keyframes and the frames that inserted them, the
 loops closed and each correction's mode, the frames decided lost, the
@@ -48,8 +60,10 @@ keyframe (fisheye passes), the IMU-initialization frame, keyframe count
 and gravity and the final gravity (``fsi``), and the run's seconds.
 chip_smoke.py records these as ``REF_RGBD``, ``REF_FISHEYE`` and
 ``REF_FSI``. The runs use one JAX device with the CPU's asynchronous
-dispatch off, so that every deferred decision read is ready at its first
-chance, as on the H100, where the tracking step is host-bound. ``--out``
+dispatch off and every deferred read counted as ready once computed
+(``first_chance_reads``), so that every deferred decision read is ready
+at its first chance, as on the H100, where the tracking step is
+host-bound. ``--out``
 also writes the per-frame trajectory and the ground truth to an npz.
 """
 
@@ -110,7 +124,7 @@ def imu_samples(traj, i):
     return out
 
 
-def run(kind):
+def run(kind, frames=N_FRAMES):
     cfg = config(kind)
     scene = synthetic.default_scene()
     slam = SlamSystem(cfg)
@@ -134,11 +148,11 @@ def run(kind):
     if kind == "fsi":
         traj = synthetic.AnalyticTrajectory()
     else:
-        Rs, ts = synthetic.make_trajectory(N_FRAMES, motion="strafe", speed=SPEED)
+        Rs, ts = synthetic.make_trajectory(frames, motion="strafe", speed=SPEED)
     c = cfg.camera
     t0 = time.time()
     kf_at, gt, imu_init = [], [], None
-    for i in range(N_FRAMES):
+    for i in range(frames):
         t = i / FPS
         if kind == "fsi":
             R_wc, t_wc = traj.pose(t)
@@ -180,10 +194,105 @@ def run(kind):
     return out, (times, centers, R_wc, gt[: len(centers)])
 
 
+def first_chance_reads():
+    """Make every deferred read count as ready once its value is computed,
+    as on the H100, where the tracking step is host-bound. With the CPU's
+    asynchronous dispatch off a batched decision read was still found not
+    ready at its first chance in some runs (the ``euroc`` pass's first
+    batch consumed at frame 6 of 130, at frame 5 in a 12-frame run; the
+    90-frame ``fisheye`` pass's keyframes one frame late), moving every
+    keyframe after it by one frame."""
+    from jax._src import array as jarray
+
+    jarray.ArrayImpl.is_ready = lambda self: self.block_until_ready() is not None
+
+
+def run_euroc(frames):
+    """The ``euroc`` pass: write the sequence, run the JAX package's dataset
+    runner on it and read what it did per frame."""
+    import tempfile
+
+    import chip_smoke
+    from examples import run_dataset
+    from orb_slam3_detailed_comments_kor_tpu.slam import system as jsys
+
+    params = jnp.array([FX, FX, W / 2.0, H / 2.0])
+    scene = synthetic.default_scene()
+    traj = synthetic.AnalyticTrajectory()
+    pairs, imu, gt_pos, gt_R = [], [], [], []
+    for i in range(frames):
+        R_wb, p_wb = traj.pose(i / FPS)
+        gt_pos.append(np.asarray(p_wb))
+        gt_R.append(np.asarray(R_wb))
+        il, ir, _ = synthetic.stereo_pair(params, R_wb, p_wb, BASELINE, scene, h=H, w=W)
+        pairs.append((np.asarray(il), np.asarray(ir)))
+        imu.append(imu_samples(traj, i))
+    rec = {"kf_at": [], "init": None, "lost_frames": 0, "corrections": [], "slam": None, "calls": 0}
+    track, handle_lost = jsys.SlamSystem.track_stereo_inertial, jsys.SlamSystem._handle_lost
+    correct = loop_closing.LoopCloser.correct
+
+    def tracked(self, *a, **k):
+        rec["slam"], i, n0 = self, rec["calls"], self.stats["kf_inserted"]
+        rec["calls"] += 1
+        out = track(self, *a, **k)
+        if self.stats["kf_inserted"] != n0:
+            rec["kf_at"].append(i)
+        if rec["init"] is None and self.imu_initialized:
+            rec["init"] = {"frame": i, "n_kf": self.n_kf,
+                           "gravity": np.asarray(self.gravity).tolist()}
+        return out
+
+    def lost_counted(self, frame):
+        rec["lost_frames"] += 1
+        return handle_lost(self, frame)
+
+    def correct_logged(self, *a, **k):
+        rec["corrections"].append([int(a[2]), int(a[3]), k.get("mode", "se3")])
+        return correct(self, *a, **k)
+    jsys.SlamSystem.track_stereo_inertial, jsys.SlamSystem._handle_lost = tracked, lost_counted
+    loop_closing.LoopCloser.correct = correct_logged
+    t0 = time.time()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            root, settings, gt_path, _ = chip_smoke.write_euroc_sequence(
+                tmp, euroc_config(), pairs, imu, gt_pos, gt_R, fps=FPS)
+            out_path = os.path.join(tmp, "trajectory.csv")
+            run_dataset.main(["--mode", "stereo_inertial", "--dataset", "euroc", "--seq", root,
+                              "--settings", settings, "--out", out_path, "--gt", gt_path])
+            rows = np.loadtxt(out_path, delimiter=",", ndmin=2)
+            gt = np.loadtxt(gt_path, delimiter=",", comments="#")
+    finally:
+        jsys.SlamSystem.track_stereo_inertial, jsys.SlamSystem._handle_lost = track, handle_lost
+        loop_closing.LoopCloser.correct = correct
+    slam = rec["slam"]
+    times, centers, R_wc = slam.trajectory_arrays()
+    i_est, i_gt = ate.associate_timestamps(times, gt[:, 0] * 1e-9, max_dt=0.05)
+    out = {
+        "pass": "euroc", "frames_run": frames, "state": slam.state, "n_kf": slam.n_kf,
+        "keyframe_frames": rec["kf_at"], "imu_init": rec["init"], "loops_closed": slam.loop_closer.n_loops_closed,
+        "lost_frames": rec["lost_frames"], "corrections": rec["corrections"], "stats": slam.stats,
+        "frames": len(centers), "trajectory_rows": int(rows.shape[0]),
+        "landmarks": int(np.asarray(slam.ms.lm_valid).sum()),
+        "ate_m": float(ate.ate_rmse(centers[i_est], gt[i_gt, 1:4])),
+        "gravity_end": np.asarray(slam.gravity).tolist(), "seconds": time.time() - t0,
+    }
+    return out, (times, centers, R_wc, gt[i_gt, 1:4])
+
+
+def euroc_config():
+    """The stereo-inertial camera, ORB and IMU settings that the ``euroc``
+    pass writes into its settings YAML (the runner builds its own
+    configuration from the file, with the capacity and tracking defaults)."""
+    cam = CameraConfig(width=W, height=H, fx=FX, fy=FX, cx=W / 2.0, cy=H / 2.0, bf=BASELINE * FX)
+    return SLAMConfig(sensor=SensorType.IMU_STEREO, camera=cam, orb=ORBConfig(n_features=1200, cell_size=32),
+                      imu=IMUConfig(frequency=IMU_RATE))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--pass", dest="kind", choices=("rgbd", "fisheye", "fsi", "si", "mono", "mi"), required=True)
-    ap.add_argument("--frames", type=int, default=N_FRAMES, help="frames of the si, mono and mi passes")
+    ap.add_argument("--pass", dest="kind", choices=("rgbd", "fisheye", "fsi", "si", "mono", "mi", "euroc"),
+                    required=True)
+    ap.add_argument("--frames", type=int, default=N_FRAMES, help="frames of the pass (its first ones)")
     ap.add_argument("--out", default=None, help="npz for the per-frame trajectory")
     args = ap.parse_args()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -194,6 +303,7 @@ def main() -> int:
         sys.argv = [sys.argv[0]] + (["--out", args.out] if args.out else [])
         return jax_si_ref.main()
     jax.config.update("jax_cpu_enable_async_dispatch", False)
+    first_chance_reads()
     assert len(jax.devices()) == 1, "run on one JAX device"
     if args.kind in ("mono", "mi"):
         import jax_mono_ref
@@ -213,8 +323,11 @@ def main() -> int:
         out["frames_run"] = args.frames
         if args.kind == "mi":
             out["imu_scales"] = scales
+    elif args.kind == "euroc":
+        out, (times, centers, R_wc, gt) = run_euroc(args.frames)
     else:
-        out, (times, centers, R_wc, gt) = run(args.kind)
+        out, (times, centers, R_wc, gt) = run(args.kind, args.frames)
+        out["frames_run"] = args.frames
     print(json.dumps(out))
     if args.out:
         np.savez(args.out, times=times, centers=centers, R_wc=R_wc, gt=gt)
