@@ -48,7 +48,7 @@ Phase 4  the SLAM loop at bench scale: ``slam.system.SlamSystem`` (loop
          services a fusion slice make no synchronizing call outside the
          batched decision read, each slice alone captures in a CUDA graph
          (capture refuses any host read or stream wait) and, where its
-         stream operations fit the launch queue (measured), returns before
+         device operations fit the launch queue (measured), returns before
          a 400 ms sleep kernel ends, and the ATE is at most the JAX
          reference's (REF_ATE_M) plus 5 mm.
 Phase 5  the card against the CPU for the loop (loop closing on, the
@@ -102,7 +102,7 @@ Phase 8  the stereo-inertial pass at bench scale (bench.py's
          (SI_FRAMES) of bench.py's 130 frames of
          ``synthetic.AnalyticTrajectory`` (cut to fit the script's time) at
          20 fps with 200 Hz IMU samples
-         (``bench.py:301-324``), rendered on the card; a 12-frame warm-up
+         (``bench.py:301-324``), rendered on the card; a 6-frame warm-up
          pass, then one pass that blocks on each frame's pose (frame wall
          p50/p99, frames/s, launches, peak memory; every tracked frame under
          the sync debug mode, its synchronizing calls reported by the slice
@@ -118,8 +118,8 @@ Phase 8  the stereo-inertial pass at bench scale (bench.py's
          equal the reference's, the keyframes are within 2 of its, the ATE is
          at most its plus 5 mm, the final gravity is within 0.01 rad of its
          (at 90 frames the IMU initialization's: the VIBA1 re-initialization
-         at 14 keyframes lies past the cut, so only phase 13 reaches it, on
-         the fisheye rig), the VI local-BA slice and the VIO step capture in a CUDA graph, two
+         at 14 keyframes lies past the cut; phase 13 runs that step on its
+         final map), the VI local-BA slice and the VIO step capture in a CUDA graph, two
          runs of a VI local-BA slice give the same bits, frames that service
          no slice make no synchronizing call, and the three kernels
          equal their plain versions at the inertial frame's inputs with one
@@ -170,19 +170,19 @@ Phase 10 the monocular-inertial pass at bench scale: ``track_mono_inertial``
          equal their plain versions at one frame's inputs.
 Phase 11 the RGB-D pass at bench scale: ``SlamSystem.track_rgbd``
          (``sensor_config("rgbd")``: phase 4's setup with an RGBD sensor,
-         loop closing on) over the first 90 of phase 4's 130 strafe
+         loop closing on) over the first 60 of phase 4's 130 strafe
          frames, each the left image and its rendered depth, after a
-         12-frame warm-up pass.
+         6-frame warm-up pass.
          Every frame blocks on its pose under the sync debug mode; the
          kernels' inputs are recorded at frame 10. Prints one ``phase 11
          (<card>): {json}`` line (keyframes, loops, lost frames, ATE beside
          the JAX reference's ``REF_RGBD`` from ``tools/jax_sensor_ref.py
-         --pass rgbd --frames 90``; frame wall p50/p99, frames/s, peak memory, the
-         device ms and stream operations of one ``full_rgbd_step`` and one
+         --pass rgbd --frames 60``; frame wall p50/p99, frames/s, peak memory, the
+         device ms and device operations of one ``full_rgbd_step`` and one
          local-BA slice, synchronizing calls by frame kind).
 Phase 12 the stereo-fisheye pass: ``track_stereo`` on a rig of two 512x512
          KB8 cameras with TUM-VI's calibration (KB8_TUMVI), ``Tlr`` a 0.10 m
-         x-offset (``sensor_config("fisheye")``), over the first 60 frames
+         x-offset (``sensor_config("fisheye")``), over the first 40 frames
          of the same strafe as raw fisheye pairs; as phase 11 against
          ``REF_FISHEYE`` (the reference cut alike), with the
          device ms of one ``full_fisheye_step`` and one rig local-BA slice,
@@ -190,16 +190,24 @@ Phase 12 the stereo-fisheye pass: ``track_stereo`` on a rig of two 512x512
          run-to-run spread.
 Phase 13 the stereo-fisheye-inertial pass (TUM-VI's own mode):
          ``track_stereo_inertial`` on that rig with phase 8's IMU settings
-         (``sensor_config("fsi")``) over phase 8's 130 frames of
-         ``AnalyticTrajectory`` and its 200 Hz samples, the kernels'
-         inputs recorded at frame 80 (after the IMU initialization);
+         (``sensor_config("fsi")``) over the first 80 of phase 8's 130
+         frames of ``AnalyticTrajectory`` and its 200 Hz samples, the
+         kernels' inputs recorded at frame 75 (after the IMU
+         initialization);
          against ``REF_FSI`` with the IMU initialization (frame, keyframes)
-         and the final gravity, and the device ms, stream operations and
-         CUDA-graph capture of one rig VIO step and VI local-BA slice.
+         and the final gravity, and the device ms, device operations and
+         CUDA-graph capture of one rig VIO step and VI local-BA slice. The
+         pass ends at 9 keyframes, before VIBA1 (the stereo-inertial
+         re-initialization at the init's keyframes + 6), so the phase runs
+         that step once on the final map with the system's arguments
+         (``viba1_step``) under the sync debug mode, against the gravity
+         of the reference's same step on its own final map.
          Phases 11-13 fail unless the final state, loops and lost frames
          equal the reference's, the keyframes are within 2 and the ATE
          within 5 mm of its (phase 13: the IMU initializes at its frame with
-         its keyframes and the gravity ends within 0.01 rad of its), tracked
+         its keyframes, the gravity ends within 0.01 rad of its, and VIBA1
+         moves the gravity, makes no synchronizing call and ends within
+         0.01 rad of the reference's VIBA1), tracked
          frames make no synchronizing call, the mapping slices capture in a
          CUDA graph, a rig slice gives the same bits twice, the newest
          keyframe has at least 100 rig rows, and the three kernels equal
@@ -233,6 +241,28 @@ Phase 14 the dataset runner: phase 8's stereo-inertial data (the first
          synchronizing call, the trained vocabularies' centroids are equal
          and their database rows within 1e-5, and the three kernels equal
          their plain versions at the recorded inputs.
+
+Phases 6 and 8 also hold the observation-sharded solvers
+         (``parallel/``) on their pass's map: ``distributed_bundle_adjust_cg``
+         on the mesh [card] (phase 6, 2 LM and 24 CG iterations) and
+         ``distributed_full_inertial_ba`` on [card] (phase 8, 2 iterations)
+         must give the bits of the one-device slice (``global_ba`` /
+         ``inertial.full_inertial_ba``); then ``global_ba`` with its module
+         mesh set to four shards of the card (phase 6) and the FIBA on four
+         shards (phase 8) must give the same bits twice, cost None, and stay
+         within tests/test_dist_ba.py's distributed-versus-single bounds
+         (DIST_BOUNDS) of one shard. Each prints the device ms and the
+         device operations (kernels, fills, copies) of a one-shard and a
+         four-shard call, and the seconds the checks took.
+Phase 15 the multi-device dry run (``parallel/dryrun.py``) at the reference's
+         sizes (the dense solver at K=4, L=64; the PCG solver at K=128,
+         L=32,768, 262,144 observations; the sharded FullInertialBA at K=32,
+         L=8,192 on a static chain) on the meshes [card] and [card] x 4.
+         Prints each case's device ms and peak memory (above what was
+         allocated before it); fails on a non-finite
+         output or a four-shard output outside DIST_BOUNDS of one shard.
+         One card cannot show scaling across cards: the four shards share
+         it.
 
 The last stdout line is {"ok": true, "device": {...}}; the line before it
 lists every kernel with its launches, error, times and bound, and the
@@ -291,10 +321,10 @@ ATE_MARGIN = 0.005
 MIN_LOOP_KF = 10
 SMALL_LOOP_FRAMES = 16
 # phase 8: bench.py's stereo-inertial pass (a 200 Hz IMU); the frame of the
-# pass whose kernel inputs and stream operations are recorded (the IMU is
+# pass whose kernel inputs and device operations are recorded (the IMU is
 # initialized and the per-frame VIO runs), the warm-up frames; the keyframe and gravity
 # tolerances against REF_SI (keyframe decisions follow the device's speed)
-SI_FRAMES, SI_IMU_RATE, SI_PROFILE_FRAME, SI_WARMUP = 90, 200.0, 80, 12
+SI_FRAMES, SI_IMU_RATE, SI_PROFILE_FRAME, SI_WARMUP = 90, 200.0, 80, 6
 SI_KF_TOL, SI_GRAVITY_TOL = 2, 0.01
 # tools/jax_sensor_ref.py --pass si --frames 90: tools/jax_si_ref.py's run of
 # phase 8's pass cut to its SI_FRAMES (the JAX reference on a CPU, one
@@ -444,8 +474,19 @@ def device_ms(fn, runs=TIMING_RUNS, reps=5):
     return statistics.median(per_call), min(per_call), max(per_call)
 
 
-# the runtime calls that put work on a stream
-STREAM_OPS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cudaMemsetAsync", "cudaMemcpyAsync")
+def device_events(prof):
+    """(start µs, name, µs) of each device activity (kernel, copy, fill)
+    that the profile ``prof`` recorded, read from the profiler's own
+    records: building its FunctionEvent list costs ~60 µs of host time an
+    event, seconds for a step of tens of thousands of operations."""
+    from torch.autograd import DeviceType
+
+    try:
+        return [(e.start_ns() / 1e3, e.name(), e.duration_ns() / 1e3)
+                for e in prof.profiler.kineto_results.events() if e.device_type() == DeviceType.CUDA]
+    except AttributeError:  # a torch without these accessors
+        return [(e.time_range.start, e.name, e.time_range.elapsed_us())
+                for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
 def profiled_device_ms(fn, reps=3, ops=False):
@@ -454,27 +495,38 @@ def profiled_device_ms(fn, reps=3, ops=False):
     put on the stream, the median over ``reps`` calls after a warm one.
     Unlike ``device_ms`` it needs no sleep kernel long enough to cover the
     host's enqueue, which a call of ~1,000 launches can outlast. With
-    ``ops`` the first of the calls also records the CUDA runtime calls
-    (which costs seconds on a call of tens of thousands of operations), and
-    it returns (ms, the launches, fills and copies that call put on the
-    stream)."""
-    from torch.autograd import DeviceType
+    ``ops`` it returns (ms, the kernels, fills and copies the first of the
+    calls ran on the device). Only the CUDA activity is recorded: recording
+    the host's runtime calls as well cost about 0.4 ms of host time per
+    operation, tens of seconds for a fisheye step."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     times, n_ops = [], None
-    for i in range(reps):
-        host = ops and i == 0
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA] if host
-                     else [ProfilerActivity.CUDA]) as prof:
+    for _ in range(reps):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        events = prof.events()
-        times.append(sum(e.time_range.elapsed_us() for e in events if e.device_type == DeviceType.CUDA) / 1e3)
-        if host:
-            n_ops = sum(1 for e in events if e.name in STREAM_OPS)
+        on_device = device_events(prof)
+        times.append(sum(us for _, _, us in on_device) / 1e3)
+        n_ops = len(on_device) if n_ops is None else n_ops
     return (statistics.median(times), n_ops) if ops else statistics.median(times)
+
+
+def profiled_call(fn):
+    """One call of a warm ``fn()`` under torch.profiler's CUDA activity
+    alone: (the device ms of its work, the kernels, fills and copies it ran
+    on the device, its result). Leaving the host activity out keeps a call
+    of tens of thousands of operations to about its own time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    on_device = device_events(prof)
+    return sum(us for _, _, us in on_device) / 1e3, len(on_device), out
 
 
 def host_ms_behind_sleep(fn):
@@ -721,6 +773,10 @@ def recording_kernel_calls(calls):
             originals[key].launches += spy.launches
 
 
+# set once the profiler has lost the brackets of a call in every attempt
+_PROFILER_LOST_BRACKETS = []
+
+
 def device_kernels(fn, attempts=3):
     """Names of the device activities (kernels, copies, fills) that one call
     of ``fn()`` puts on the card, as torch.profiler's CUDA activity records
@@ -729,13 +785,14 @@ def device_kernels(fn, attempts=3):
     edge of its capture window, so it must report both brackets, and what
     lies between them is the call's. A capture that lost a bracket is
     taken again, up to ``attempts`` times; if none kept both, the call's
-    device work is counted in a CUDA graph (``graph_device_nodes``)."""
-    from torch.autograd import DeviceType
+    device work is counted in a CUDA graph (``graph_device_nodes``), and so
+    is every later call's."""
     from torch.profiler import ProfilerActivity, profile
 
     from orb_slam3_detailed_comments_kor_tpu_torch.ops import _cuda
 
-    for _ in range(attempts):
+    names = []
+    for _ in range(0 if _PROFILER_LOST_BRACKETS else attempts):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for f in (_cuda.noop, fn, _cuda.noop):
@@ -743,17 +800,19 @@ def device_kernels(fn, attempts=3):
                 f()
                 torch.cuda.synchronize()
             time.sleep(0.005)
-        on_device = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                           key=lambda e: e.time_range.start)
-        names = [e.name for e in on_device]
+        names = [name for _, name, _ in sorted(device_events(prof))]
         if len(names) >= 2 and "noop_kernel" in names[0] and "noop_kernel" in names[-1]:
             return names[1:-1]
         time.sleep(0.5)
     # the profiler recorded no bracket in any attempt: count the call's
     # device work in a CUDA graph instead, whose nodes are what one call puts
-    # on the stream (no names there)
-    log(f"  the profiler recorded {names} around the call {attempts} times; counting its device work "
-        "in a CUDA graph")
+    # on the stream (no names there). A profiler that lost them once lost
+    # them in every later call of the process (each loss cost three
+    # captures and 1.5 s of waits), so later calls go to the graph at once.
+    if not _PROFILER_LOST_BRACKETS:
+        _PROFILER_LOST_BRACKETS.append(len(names))
+        log(f"  the profiler recorded {names} around the call {attempts} times; counting its device work "
+            "in a CUDA graph, here and in every later call")
     return [f"{kind} (CUDA graph node)" for kind in graph_device_nodes(fn)]
 
 
@@ -1238,6 +1297,70 @@ def loop_host_read_allowance(calls):
             + 2 * calls.get("relocalize_in", 0) + 2 * calls.get("reloc_attempt", 0))
 
 
+#: tests/test_dist_ba.py's distributed-versus-single bounds: poses and
+#: points (m), velocities (m/s)
+DIST_BOUNDS = dict(pose_m=2e-3, point_m=5e-3, vel=2e-2)
+
+
+def sharded_record(one_device, one_call, four_call, fields, bounds, moved_from):
+    """Hold a sharded solve to its one-device solve: ``one_call()`` (one
+    shard of the card) must give the bits of ``one_device``, two
+    ``four_call()``s (four shards) the same bits, within ``bounds`` (a
+    bound per field) of one shard. ``fields`` maps a name to a function of
+    a call's result that picks a tensor. Returns (record, failures, the
+    first four-shard result)."""
+    t0 = time.time()
+    four_a = four_call()  # the four-shard shapes' warm-up (the one-device solve warmed one shard's)
+    prof_one, prof_four = profiled_call(one_call), profiled_call(four_call)
+    one, four_b = prof_one[2], prof_four[2]
+    rec = dict(
+        one_shard_equals_one_device={k: torch.equal(f(one_device), f(one)) for k, f in fields.items()},
+        four_shards_repeat={k: torch.equal(f(four_a), f(four_b)) for k, f in fields.items()},
+        four_vs_one={k: max_abs_err(f(four_a), f(one)) for k, f in fields.items()},
+        moved_m=max_abs_err(fields["t_cw"](one), moved_from),
+        device_ms=dict(one_shard=prof_one[0], four_shards=prof_four[0]),
+        device_ops=dict(one_shard=prof_one[1], four_shards=prof_four[1]),
+        seconds=time.time() - t0,
+    )
+    bad = [f"{k}: one shard is not the one-device solve" for k, v in rec["one_shard_equals_one_device"].items()
+           if not v]
+    bad += [f"{k}: two four-shard solves differ" for k, v in rec["four_shards_repeat"].items() if not v]
+    bad += [f"{k}: four shards {rec['four_vs_one'][k]} from one" for k, b in bounds.items()
+            if not rec["four_vs_one"][k] <= b]
+    if not rec["moved_m"] > 0.0:
+        bad.append("the sharded solve did not move the map")
+    return rec, bad, four_a
+
+
+def sharded_gba(ms, cam, bf, chunk, dev):
+    """Phase 6's sharded GBA on the pass's map (see the module docstring);
+    ``chunk`` is the one-device ``global_ba`` slice's map (iters=2)."""
+    from orb_slam3_detailed_comments_kor_tpu_torch.parallel import dist_ba
+    from orb_slam3_detailed_comments_kor_tpu_torch.slam import loop_closing
+
+    obs, fixed_pose, fixed_point = loop_closing.map_observations(ms)
+    valid = ms.lm_valid
+
+    def one_call():
+        R, t, X = dist_ba.distributed_bundle_adjust_cg([dev], ms.kf_R_cw, ms.kf_t_cw, ms.lm_pos, obs, fixed_pose,
+                                                        fixed_point, cam, bf, iters=2, cg_iters=24)
+        return ms._replace(kf_R_cw=R, kf_t_cw=t, lm_pos=X), None
+
+    def four_call():
+        loop_closing._GBA_MESH = [dev] * 4
+        try:
+            return loop_closing.global_ba(ms, cam, bf, iters=2)
+        finally:
+            loop_closing._GBA_MESH = None
+
+    fields = {"R_cw": lambda r: r[0].kf_R_cw, "t_cw": lambda r: r[0].kf_t_cw, "points": lambda r: r[0].lm_pos[valid]}
+    rec, bad, four = sharded_record((chunk, None), one_call, four_call, fields,
+                                    dict(t_cw=DIST_BOUNDS["pose_m"], points=DIST_BOUNDS["point_m"]), ms.kf_t_cw)
+    if four[1] is not None:
+        bad.append("the four-shard GBA returned a cost")
+    return rec, bad
+
+
 def phase6(dev, counters, per_kernel, smi):
     """Phase 6: bench.py's loop-closure pass at bench scale (see the module
     docstring). Prints its JSON line, raises on a failed check, holds
@@ -1306,6 +1429,7 @@ def phase6(dev, counters, per_kernel, smi):
         pose_t_m=max_abs_err(ms_a.kf_t_cw, ms_b.kf_t_cw), pose_R=max_abs_err(ms_a.kf_R_cw, ms_b.kf_R_cw),
         points_m=max_abs_err(ms_a.lm_pos, ms_b.lm_pos), cost=abs(float(cost_a) - float(cost_b)),
         cost_value=float(cost_a))
+    sharded6, sharded6_bad = sharded_gba(slam6.ms, cam6, cfg.camera.bf, ms_a, dev)
     corr_ms = [f["ms"] for f in fr if f["frame"] in corr_frames]
     loop6 = dict(
         frames=len(slam6.trajectory), state=slam6.state, loops_closed=lc6.n_loops_closed,
@@ -1317,7 +1441,7 @@ def phase6(dev, counters, per_kernel, smi):
         landmarks=int(slam6.ms.lm_valid.sum()), ate_m=ate6,
         frame_p50_ms=float(np.percentile(lat6, 50)), frame_p99_ms=float(np.percentile(lat6, 99)),
         frame_max_ms=float(lat6.max()), correction_frame_ms=corr_ms, frames_per_s=LOOP6_FRAMES / pass6_s,
-        slice_device_ms=slice6_ms, gba_spread=gba_spread, host_reads=reads,
+        slice_device_ms=slice6_ms, gba_spread=gba_spread, sharded_gba=sharded6, host_reads=reads,
         refine_matcher_calls=len(rec["refine_inputs"]), launches=rec["launches"], peak_mib=rec["peak_mib"],
         slice_wall_ms={k: dict(count=len(v), median=float(np.median(v)), max=float(np.max(v)))
                        for k in ("tracking", "bow_insert", "loop", "gba_chunk", "local_ba_chunk", "fuse")
@@ -1351,6 +1475,7 @@ def phase6(dev, counters, per_kernel, smi):
             bad.append(f"{k}: {rec['launches'][k]} launches over the pass")
     if not rec["refine_inputs"]:
         bad.append("no hypothesis refinement ran masked_best2")
+    bad += ["sharded GBA: " + b for b in sharded6_bad]
     if bad:
         raise AssertionError("phase 6: " + "; ".join(bad))
 
@@ -1802,12 +1927,39 @@ def recording_last_call(module, name, store, outputs=None):
         setattr(module, name, fn)
 
 
+def sharded_fiba(ms, ikf, gravity, cam, R_cb, t_cb, bf, dev):
+    """Phase 8's sharded FullInertialBA on the pass's map after the IMU
+    initialization (see the module docstring)."""
+    from orb_slam3_detailed_comments_kor_tpu_torch.parallel import dist_vi_ba
+    from orb_slam3_detailed_comments_kor_tpu_torch.slam import inertial
+
+    def on(mesh):
+        def call():
+            dist_vi_ba._VI_GBA_MESH = mesh
+            try:
+                return dist_vi_ba.distributed_full_inertial_ba(ms, ikf, gravity, cam, R_cb, t_cb, bf, iters=2)
+            finally:
+                dist_vi_ba._VI_GBA_MESH = None
+        return call
+
+    valid = ms.lm_valid
+    fields = {"R_cw": lambda r: r[0].kf_R_cw, "t_cw": lambda r: r[0].kf_t_cw,
+              "points": lambda r: r[0].lm_pos[valid], "vel": lambda r: r[1].vel, "bg": lambda r: r[1].bg,
+              "ba": lambda r: r[1].ba}
+    one_device = inertial.full_inertial_ba(ms, ikf, gravity, cam, R_cb, t_cb, bf, iters=2)
+    rec, bad, four = sharded_record(one_device, on([dev]), on([dev] * 4), fields,
+                                    dict(t_cw=DIST_BOUNDS["pose_m"], points=DIST_BOUNDS["point_m"],
+                                         vel=DIST_BOUNDS["vel"]), ms.kf_t_cw)
+    if four[2] is not None:
+        bad.append("the four-shard FIBA returned a cost")
+    return rec, bad
+
+
 def phase8(dev, counters, per_kernel, smi):
     """Phase 8: bench.py's stereo-inertial pass at bench scale (see the
     module docstring). Prints its JSON line, raises on a failed check,
     holds the three kernels against their plain versions at one inertial
     frame's inputs (into ``per_kernel``) and returns the pass's record."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from orb_slam3_detailed_comments_kor_tpu_torch.eval import ate
@@ -1832,7 +1984,7 @@ def phase8(dev, counters, per_kernel, smi):
     # the sync debug mode with the batched decision read left out, so each
     # synchronizing call counted is a host read of a value. One inertial
     # frame (initialized IMU, VIO on) runs unwatched instead: it records the
-    # kernels' inputs and its stream operations, and its wall time is left
+    # kernels' inputs and its device operations, and its wall time is left
     # out of the percentiles. The launch counters and the peak memory are
     # the pass's; it records the last per-frame IMU and VIO calls and the
     # loop corrections for the slices timed below.
@@ -1855,13 +2007,10 @@ def phase8(dev, counters, per_kernel, smi):
             if not slam.imu_initialized:
                 raise AssertionError(f"phase 8: the IMU is not initialized at frame {i}")
             torch.cuda.synchronize()
-            with recording_kernel_calls(kcalls), profile(activities=[ProfilerActivity.CPU,
-                                                                      ProfilerActivity.CUDA]) as prof:
+            with recording_kernel_calls(kcalls), profile(activities=[ProfilerActivity.CUDA]) as prof:
                 call()
                 torch.cuda.synchronize()
-            frame_ops.update(
-                stream_ops=sum(1 for e in prof.events() if e.name in STREAM_OPS),
-                device_kernels=sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA), kind=kind)
+            frame_ops.update(device_ops=len(device_events(prof)), kind=kind)
             frames_rec.append(dict(frame=i, kind=kind, watched=False, after_init=was_init, syncs=0,
                                    sync_calls=[], ms=None))
             return
@@ -1949,6 +2098,7 @@ def phase8(dev, counters, per_kernel, smi):
                   points_m=max_abs_err(ms_a.lm_pos, ms_b.lm_pos), vel=max_abs_err(ikf_a.vel, ikf_b.vel),
                   bias=max(max_abs_err(ikf_a.bg, ikf_b.bg), max_abs_err(ikf_a.ba, ikf_b.ba)),
                   cost=abs(float(cost_a) - float(cost_b)))
+    sharded8, sharded8_bad = sharded_fiba(ms_f, ikf_f, g_f, cam8, slam.R_cb, slam.t_cb, bf, dev)
     watched = [f for f in frames_rec if f["watched"]]
     si = dict(
         frames=len(slam.trajectory), state=slam.state,
@@ -1959,9 +2109,9 @@ def phase8(dev, counters, per_kernel, smi):
         stats=slam.stats, landmarks=int(slam.ms.lm_valid.sum()), ate_m=ate8, ref=REF_SI,
         frame_p50_ms=float(np.percentile(lat_s, 50)), frame_p99_ms=float(np.percentile(lat_s, 99)),
         frame_max_ms=float(lat_s.max()), frames_per_s=SI_FRAMES / pass_s, peak_mib=peak8,
-        launches=launches8, slice_device_ms=slice_ms, slice_stream_ops=slice_ops,
+        launches=launches8, slice_device_ms=slice_ms, slice_device_ops=slice_ops,
         slice_graph_capture_error=capture,
-        vi_local_ba_spread=spread, vi_local_ba_moved_m=moved, inertial_frame=frame_ops,
+        vi_local_ba_spread=spread, vi_local_ba_moved_m=moved, sharded_fiba=sharded8, inertial_frame=frame_ops,
         syncs_by_kind={k: sum(f["syncs"] for f in watched if f["kind"] == k)
                        for k in sorted({f["kind"] for f in watched})},
         syncs_after_init=sum(f["syncs"] for f in watched if f["after_init"]),
@@ -1978,7 +2128,7 @@ def phase8(dev, counters, per_kernel, smi):
         f"{REF_SI['ate_m'] * 1e3:.3f} mm); {slam.n_kf} keyframes (reference {REF_SI['n_kf']}); IMU init {init} "
         f"(reference {REF_SI['imu_init']['n_kf']} keyframes); loops {si['corrections']}; slices "
         + ", ".join(f"{k} {v:.3f} ms" for k, v in slice_ms.items())
-        + f"; {frame_ops.get('stream_ops')} stream operations in inertial frame {SI_PROFILE_FRAME} "
+        + f"; {frame_ops.get('device_ops')} device operations in inertial frame {SI_PROFILE_FRAME} "
         + f"(preintegration {slice_ops['preintegration']}, VIO step {slice_ops['vio_step']})"
         + f"; peak {peak8:.1f} MiB; phase 8 took {time.time() - t_p8:.1f} s")
     bad = []
@@ -2007,6 +2157,7 @@ def phase8(dev, counters, per_kernel, smi):
     for k in LAUNCHES_PER_FRAME:
         if launches8[k] < SI_FRAMES - 1:
             bad.append(f"{k}: {launches8[k]} launches over the pass")
+    bad += ["sharded FIBA: " + b for b in sharded8_bad]
     if bad:
         raise AssertionError("phase 8: " + "; ".join(bad))
     return si
@@ -2198,8 +2349,7 @@ def phase9(dev, counters, per_kernel, smi):
     voc.load_default(dev)
     torch.cuda.synchronize()
     # the warm-up pass; it records the kernels' inputs in one tracked frame
-    # and counts that frame's stream operations
-    kcalls, frame_ops = {}, {}
+    kcalls = {}
 
     def warm_frame(i, slam, call):
         if i != MONO_PROFILE_FRAME:
@@ -2291,7 +2441,7 @@ def phase9(dev, counters, per_kernel, smi):
         landmarks=int(slam.ms.lm_valid.sum()), ate_scale_aligned_m=ate9, ref=REF_MONO,
         frame_p50_ms=float(np.percentile(lat_s, 50)), frame_p99_ms=float(np.percentile(lat_s, 99)),
         frame_max_ms=float(lat_s.max()), frames_per_s=MONO_FRAMES / pass_s, peak_mib=peak9, launches=launches9,
-        tracked_frames=n_tracked, slice_device_ms=slice_ms, slice_stream_ops=slice_ops,
+        tracked_frames=n_tracked, slice_device_ms=slice_ms, slice_device_ops=slice_ops,
         stereo_step_stream_ops=16077, slice_graph_capture_error=capture,
         init_call_host_reads=[len(r) for r in init_reads], init_call_read_sites=init_reads[:1],
         init_ref_host_reads=MONO_INIT_REF_READS, syncs_by_kind=sync_summary(records),
@@ -2305,7 +2455,7 @@ def phase9(dev, counters, per_kernel, smi):
         f"{REF_MONO['init_frame']}); {slam.n_kf} keyframes (reference {REF_MONO['n_kf']}); scale-aligned ATE "
         f"{ate9 * 1e3:.3f} mm (reference {REF_MONO['ate_scale_aligned_m'] * 1e3:.3f} mm); device ms "
         + ", ".join(f"{k} {v:.3f}" for k, v in slice_ms.items())
-        + f"; stream operations {slice_ops}; peak {peak9:.1f} MiB; phase 9 took {time.time() - t_p9:.1f} s")
+        + f"; device operations {slice_ops}; peak {peak9:.1f} MiB; phase 9 took {time.time() - t_p9:.1f} s")
     bad = []
     if slam.state != REF_MONO["state"] or len(slam.trajectory) != MONO_FRAMES:
         bad.append(f"final state {slam.state}, {len(slam.trajectory)} frames recorded")
@@ -2465,11 +2615,12 @@ def phase10(dev, counters, per_kernel, smi):
 # rig, TUM-VI's own mode). Each runs a SENSOR_WARMUP-frame warm-up pass,
 # then one pass that blocks on each frame's pose under the sync debug mode
 # and records the kernels' inputs at one tracked frame (PROFILE_FRAME).
-# Phases 11 and 12 run the first 90 and 60 of their 130 frames (cut to fit
-# the script's time when phase 14 came, against references cut alike).
-SENSOR_FRAMES, SENSOR_WARMUP = {"rgbd": 90, "fisheye": 60, "fsi": 130}, 12
+# Phases 11, 12 and 13 run the first 60, 40 and 80 of their 130 frames (cut
+# to fit the script's time as phases 14 and 15 came, against references cut
+# alike).
+SENSOR_FRAMES, SENSOR_WARMUP = {"rgbd": 60, "fisheye": 40, "fsi": 80}, 6
 SENSOR_KF_TOL, FSI_GRAVITY_TOL = 2, 0.01
-PROFILE_FRAME = {"rgbd": 10, "fisheye": 10, "fsi": 80}
+PROFILE_FRAME = {"rgbd": 10, "fisheye": 10, "fsi": 75}
 # TUM-VI's 512x512 Kannala-Brandt calibration (the JAX package's
 # tests/test_camera.py:12), both cameras; the right camera 0.10 m along x
 KB8_TUMVI = (190.978, 190.973, 254.932, 256.897, 0.00348, 0.000715, -0.00205, 0.000581)
@@ -2479,17 +2630,23 @@ FISH_HW, FISH_BASE = 512, 0.10
 # projection searches (the fisheye's left-right match is the plain matcher)
 LAUNCHES_PER_SENSOR_FRAME = {"fast_nms": 1, "gather_patches": 1, "masked_best2": 3}
 # tools/jax_sensor_ref.py (one JAX device, asynchronous dispatch off, on a
-# CPU): --pass rgbd --frames 90 (the whole 130 frames: 14 keyframes, ATE
-# 4.774 mm), --pass fisheye --frames 60 (the whole 130: 14 keyframes, ATE
-# 2.835 mm, 212 rig rows), --pass fsi (295 s)
-REF_RGBD = dict(state=1, n_kf=10, keyframe_frames=[0, 5, 13, 25, 33, 45, 53, 65, 73, 85],
-                loops_closed=0, lost_frames=0, landmarks=2142, ate_m=0.003490707597087925)
-REF_FISHEYE = dict(state=1, n_kf=7, keyframe_frames=[0, 9, 17, 29, 37, 49, 57],
-                   loops_closed=0, lost_frames=0, landmarks=1253, ate_m=0.0030052389284745823, rig_rows_newest_kf=367)
-REF_FSI = dict(state=1, n_kf=14, keyframe_frames=[0, 9, 17, 29, 37, 49, 57, 69, 77, 89, 97, 109, 117, 129],
-               loops_closed=0, lost_frames=0, landmarks=1635, ate_m=0.002024643313115801, rig_rows_newest_kf=368,
+# CPU): --pass rgbd --frames 60 (40 s; at 90 frames: 10 keyframes, ATE
+# 3.491 mm; the whole 130 frames: 14 keyframes, ATE 4.774 mm), --pass
+# fisheye --frames 40 (52 s; at 60 frames: 7 keyframes, ATE 3.005 mm; the
+# whole 130: 14 keyframes, ATE 2.835 mm, 212 rig rows),
+# --pass fsi --frames 80 (189 s; at 90 frames: 10 keyframes, ATE 1.966 mm;
+# the whole 130: 14 keyframes, ATE 2.025 mm, 368 rig rows, VIBA1 at 14
+# keyframes; a pass that ends before VIBA1 runs it once on its final map:
+# viba1_gravity)
+REF_RGBD = dict(state=1, n_kf=7, keyframe_frames=[0, 5, 13, 25, 33, 45, 53],
+                loops_closed=0, lost_frames=0, landmarks=1730, ate_m=0.003207332983656666)
+REF_FISHEYE = dict(state=1, n_kf=5, keyframe_frames=[0, 9, 17, 29, 37],
+                   loops_closed=0, lost_frames=0, landmarks=914, ate_m=0.0032515407378539266, rig_rows_newest_kf=304)
+REF_FSI = dict(state=1, n_kf=9, keyframe_frames=[0, 9, 17, 29, 37, 49, 57, 69, 77],
+               loops_closed=0, lost_frames=0, landmarks=1231, ate_m=0.0019204279506391674, rig_rows_newest_kf=337,
                imu_init=dict(frame=69, n_kf=8, gravity=[0.4552295207977295, 9.788310050964355, -0.4667590260505676]),
-               gravity_end=[0.4550202488899231, 9.788320541381836, -0.4667626619338989])
+               gravity_end=[0.4552295207977295, 9.788310050964355, -0.4667590260505676],
+               viba1_gravity=[0.45506468415260315, 9.78825855255127, -0.46800827980041504])
 SENSOR_REF = {"rgbd": REF_RGBD, "fisheye": REF_FISHEYE, "fsi": REF_FSI}
 
 
@@ -2591,6 +2748,29 @@ def rig_rows(slam, kf):
     return int(((slam.ms.kf_uvr[kf, :, 0] >= 0) & slam.ms.kf_feat_valid[kf]).sum())
 
 
+def viba1_step(slam):
+    """VIBA1, the stereo-inertial re-initialization that
+    ``SlamSystem._insert_keyframe_inertial`` runs at the IMU init's
+    keyframes + 6, run once on ``slam``'s map with the system's arguments
+    under the sync debug mode: (its gravity, the synchronizing calls it
+    made, its device ms)."""
+    from orb_slam3_detailed_comments_kor_tpu_torch.slam import inertial
+
+    def step():
+        return inertial.initialize_imu(slam.ms, slam.ikf, slam.n_kf, slam.gravity, slam.R_cb, slam.t_cb,
+                                       estimate_scale=False)
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            _, g1, _ = step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sorted({str(w.message).splitlines()[0] for w in caught if SYNC_WARNING in str(w.message)})
+    return dict(gravity=g1.cpu().tolist(), sync_calls=syncs[:8], device_ms=profiled_device_ms(step, reps=1))
+
+
 def sensor_phase(kind, dev, counters, per_kernel, smi):
     """Phases 11 (``rgbd``), 12 (``fisheye``) and 13 (``fsi``): the pass at
     bench scale (see the module docstring). Prints its JSON line, raises on
@@ -2681,7 +2861,7 @@ def sensor_phase(kind, dev, counters, per_kernel, smi):
         landmarks=int(slam.ms.lm_valid.sum()), ate_m=ate_m, ref=ref,
         frame_p50_ms=float(np.percentile(lat_s, 50)), frame_p99_ms=float(np.percentile(lat_s, 99)),
         frame_max_ms=float(lat_s.max()), frames_per_s=n_frames / pass_s, peak_mib=peak, launches=launches,
-        slice_device_ms=slice_ms, slice_stream_ops=slice_ops, stereo_step_stream_ops=16077,
+        slice_device_ms=slice_ms, slice_device_ops=slice_ops, stereo_step_stream_ops=16077,
         slice_graph_capture_error=capture, syncs_by_kind=sync_summary(records),
         sync_calls=sorted({c for f in records if f["kind"] in ("tracking", "keyframe") for c in f["sync_calls"]})[:8],
         slice_frame_sync_calls=sorted({f"{f['kind']}: {c}" for f in records
@@ -2693,13 +2873,15 @@ def sensor_phase(kind, dev, counters, per_kernel, smi):
         rec.update(rig_rows_newest_kf=rig_rows(slam, slam.n_kf - 1), rig_local_ba_spread=spread)
     if kind == "fsi":
         g_end = slam.gravity.cpu().tolist()
-        rec.update(imu_init=init, gravity_end=g_end, gravity_end_vs_ref_rad=gravity_angle(g_end, ref["gravity_end"]))
+        viba1 = viba1_step(slam)
+        rec.update(imu_init=init, gravity_end=g_end, gravity_end_vs_ref_rad=gravity_angle(g_end, ref["gravity_end"]),
+                   viba1=viba1, viba1_vs_ref_rad=gravity_angle(viba1["gravity"], ref["viba1_gravity"]))
     log(f"phase {phase} ({smi}): " + json.dumps(rec))
     log(f"phase {phase}: {n_frames} frames in {pass_s:.2f} s ({rec['frames_per_s']:.2f} frames/s), frame "
         f"wall p50 {rec['frame_p50_ms']:.2f} ms p99 {rec['frame_p99_ms']:.2f} ms; {slam.n_kf} keyframes (reference "
         f"{ref['n_kf']}); ATE {ate_m * 1e3:.3f} mm (reference {ref['ate_m'] * 1e3:.3f} mm); device ms "
         + ", ".join(f"{k} {v:.3f}" for k, v in slice_ms.items())
-        + f"; stream operations {slice_ops}; peak {peak:.1f} MiB; phase {phase} took {time.time() - t_ph:.1f} s "
+        + f"; device operations {slice_ops}; peak {peak:.1f} MiB; phase {phase} took {time.time() - t_ph:.1f} s "
         f"(the pass {pass_s:.1f} s, the kernel checks {t_checks:.1f} s, the slices {time.time() - t_post - t_checks:.1f} s)")
     bad = []
     if slam.state != ref["state"] or len(slam.trajectory) != n_frames:
@@ -2716,6 +2898,12 @@ def sensor_phase(kind, dev, counters, per_kernel, smi):
             bad.append(f"IMU init {init}, the reference's {ref['imu_init']}")
         if not rec["gravity_end_vs_ref_rad"] <= FSI_GRAVITY_TOL:
             bad.append(f"final gravity {rec['gravity_end_vs_ref_rad']:.4f} rad from the reference's")
+        if viba1["gravity"] == g_end:
+            bad.append("VIBA1 left the gravity as it was")
+        if viba1["sync_calls"]:
+            bad.append(f"VIBA1 made synchronizing calls: {viba1['sync_calls']}")
+        if not rec["viba1_vs_ref_rad"] <= FSI_GRAVITY_TOL:
+            bad.append(f"VIBA1's gravity {rec['viba1_vs_ref_rad']:.4f} rad from the reference's")
     if kind != "rgbd":
         if rec["rig_rows_newest_kf"] < 100:
             bad.append(f"{rec['rig_rows_newest_kf']} valid rig rows in the newest keyframe")
@@ -2742,7 +2930,7 @@ def sensor_phase(kind, dev, counters, per_kernel, smi):
 # MAV layout with absolute EuRoC-like stamps (ROADMAP F29) and run by the
 # port's ``examples/run_dataset.py``; its first DS_ONLINE_FRAMES frames are
 # replayed through ``io/online.OnlineNode`` from three producer threads.
-DS_FRAMES, DS_ONLINE_FRAMES, DS_PROFILE_FRAME = 130, 30, 125
+DS_FRAMES, DS_ONLINE_FRAMES, DS_PROFILE_FRAME = 130, 15, 125
 DS_T0_NS = 1403636579763555584
 
 
@@ -3108,6 +3296,35 @@ def phase14(dev, counters, per_kernel, smi):
     return record
 
 
+def phase15(dev, smi):
+    """Phase 15: the multi-device dry run on one and four shards of the
+    card (see the module docstring). Prints its JSON line and raises on a
+    failed check."""
+    from orb_slam3_detailed_comments_kor_tpu_torch.parallel import dryrun
+
+    rec, outs = {}, {}
+    for shards in (1, 4):
+        for name, fn in dryrun.dryrun_cases([dev] * shards).items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            outs[name, shards] = fn()
+            torch.cuda.synchronize()
+            rec[f"{name}/{shards}"] = dict(
+                peak_mib=(torch.cuda.max_memory_allocated() - base) / 2**20,  # above what the earlier phases hold
+                finite=all(bool(torch.isfinite(x).all()) for x in outs[name, shards]),
+                device_ms=profiled_device_ms(fn, reps=1))
+    for name in ("dense", "gba_pcg", "inertial"):
+        rec[f"{name}/4"]["vs_one_shard"] = max_abs_err(outs[name, 4], outs[name, 1])
+    log(f"phase 15 ({smi}): " + json.dumps(rec))
+    bad = [f"{k}: a non-finite output" for k, v in rec.items() if not v["finite"]]
+    bad += [f"{k}: {v['vs_one_shard']} from one shard" for k, v in rec.items()
+            if v.get("vs_one_shard", 0.0) > DIST_BOUNDS["point_m"]]
+    if bad:
+        raise AssertionError("phase 15: " + "; ".join(bad))
+    return rec
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--baseline-csrc", default=None,
@@ -3361,7 +3578,7 @@ def main() -> int:
     }
     profiled = {k: profiled_device_ms(f, ops=True) for k, f in slices.items()}
     loop["slice_device_ms"] = {k: v[0] for k, v in profiled.items()}
-    loop["slice_stream_ops"] = {k: v[1] for k, v in profiled.items()}
+    loop["slice_device_ops"] = {k: v[1] for k, v in profiled.items()}
     # the card-to-card spread of one local-BA slice: two runs on the same inputs
     loop["local_ba_spread"] = local_ba_spread(slices["local_ba_chunk"], ms_f)
     # and one call of each captured in a CUDA graph, which refuses any call
@@ -3374,7 +3591,7 @@ def main() -> int:
     loop["slice_graph_capture_error"] = {k: graph_capture_error(f) for k, f in slices.items()}
     loop["launch_queue_capacity"] = launch_queue_capacity()
     loop["slice_host_ms_behind_sleep"] = {k: host_ms_behind_sleep(f) for k, f in slices.items()
-                                          if loop["slice_stream_ops"][k] < loop["launch_queue_capacity"]}
+                                          if loop["slice_device_ops"][k] < loop["launch_queue_capacity"]}
     loop["host_stage_ms"] = {k: {"count": v["count"], "p50_ms": v["p50_ms"], "max_ms": v["max_ms"],
                                  "total_ms": v["total_ms"]} for k, v in slam.timer.summary().items()}
     log(f"phase 4 ({smi}): " + json.dumps(loop))
@@ -3459,6 +3676,11 @@ def main() -> int:
     t_p14 = time.time()
     rec14 = phase14(dev, counters, per_kernel, smi)
     phase_s["14"] = time.time() - t_p14
+
+    # ---- phase 15: the multi-device dry run ---------------------------------
+    t_p15 = time.time()
+    phase15(dev, smi)
+    phase_s["15"] = time.time() - t_p15
     log("phase seconds: " + json.dumps(phase_s))
 
     sources = {

@@ -163,7 +163,8 @@ def make_trajectory(
     """Ground-truth camera-to-world poses (R_wc [T,3,3], t_wc [T,3]).
 
     'strafe': translate along +x facing the wall; 'arc': translate + slow
-    yaw; 'outback': out and back along x.
+    yaw; 'outback': out and back along x; 'spin': one full yaw turn on a
+    small circle; 'orbit': a loop with a swinging yaw (loop closing).
     """
     Rs, ts = [], []
     for i in range(n_frames):
@@ -179,8 +180,17 @@ def make_trajectory(
             x = speed * i if i < half else speed * (2 * half - i)
             R = np.eye(3)
             t = np.array([x, 0.015 * np.sin(i * 0.35), 0.0])
+        elif motion == "spin":
+            yaw = 2 * np.pi * i / n_frames
+            R = lie.so3_exp(torch.tensor([0.0, yaw, 0.0])).numpy()
+            t = np.array([0.03 * np.sin(yaw), 0.01 * np.sin(3 * yaw), 0.03 - 0.03 * np.cos(yaw)])
+        elif motion == "orbit":
+            th = 2 * np.pi * i / n_frames
+            r0 = 1.0
+            R = lie.so3_exp(torch.tensor([0.0, 0.15 * np.sin(th), 0.0])).numpy()
+            t = np.array([r0 * np.sin(th), 0.0, r0 * (1 - np.cos(th)) * 0.3])
         else:
-            raise ValueError(f"motion {motion!r} is not ported")
+            raise ValueError(motion)
         Rs.append(R)
         ts.append(t)
     return np.stack(Rs).astype(np.float32), np.stack(ts).astype(np.float32)

@@ -1,6 +1,7 @@
 """Batched ORB feature extraction: pyramid FAST + orientation + rBRIEF.
 
-Port of ``extract_orb_batch`` (and its tables) from
+Port of ``extract_orb_batch`` (and its tables) and the one-image
+``extract_orb`` from
 ``orb_slam3_detailed_comments_kor_tpu/ops/orb.py``: an 8-level pyramid as
 one padded stack [B·NL, Hp, Wp], FAST with the per-cell high/low fallback
 (``cuda_fast``), per-cell selection, one [48,45] patch per keypoint
@@ -180,6 +181,25 @@ def extract_orb_batch(
     if return_stack:
         return feats, stack, patches
     return feats
+
+
+def extract_orb(
+    img: torch.Tensor,
+    n_features: int = 1200,
+    n_levels: int = 8,
+    scale: float = 1.2,
+    ini_th: float = 20.0,
+    min_th: float = 7.0,
+    cell: int = 32,
+) -> Features:
+    """ORB extraction for one grayscale image [H,W] float32 (0..255):
+    ``extract_orb_batch`` on a batch of one. Returns Features with N = the
+    sum of the level budgets."""
+    feats = extract_orb_batch(
+        img[None], n_features=n_features, n_levels=n_levels, scale=scale,
+        ini_th=ini_th, min_th=min_th, cell=cell,
+    )
+    return Features(*(a[0] for a in feats))
 
 
 def features_from_stack(stack, shapes, n_features: int, scale: float,

@@ -17,7 +17,8 @@ eliminating the 3x3 landmark blocks with a dense Schur complement.
 matrix-free, by block-Jacobi PCG.
 Accept/reject is branchless (``torch.where``) and the solves are
 ``inv_ex``/``solve_ex`` without error checks, so neither loop waits on the
-device.
+device. The two joint solvers run over ``Shards`` of their observation
+table: one block on its own device here, several in ``parallel/dist_ba``.
 """
 
 from __future__ import annotations
@@ -191,6 +192,47 @@ class BAResult(NamedTuple):
     inlier: torch.Tensor   # [O] chi2-gate at the end
 
 
+def _to(x, device):
+    """x (a tensor, a tuple of tensors or None) on ``device``; a tensor
+    already there is returned as it is. A copy to a card is queued on the
+    stream; a copy to the host is complete when this returns."""
+    if x is None:
+        return None
+    if isinstance(x, tuple):
+        vals = [_to(a, device) for a in x]
+        return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
+    return x.to(device, non_blocking=torch.device(device).type == "cuda")
+
+
+class Shards(NamedTuple):
+    """An observation table split into contiguous row blocks, block ``i``
+    on ``devices[i]`` (``parallel.dist_ba.shard_observations``). The state
+    lives on the first device: ``put`` copies a value to every shard and
+    ``reduce`` adds the shards' partial sums on the first device in shard
+    order, a fixed order, so the sum has the same bits on every run. One
+    block on the table's own device is the one-device solve: ``put`` and
+    ``reduce`` then copy and add nothing."""
+
+    obs: tuple
+    devices: tuple
+
+    @staticmethod
+    def single(obs: Observations) -> "Shards":
+        return Shards((obs,), (obs.kf.device,))
+
+    def put(self, x) -> list:
+        return [_to(x, d) for d in self.devices]
+
+    def reduce(self, parts):
+        """Σ parts (tensors, or equal-length tuples of them)."""
+        if isinstance(parts[0], tuple):
+            return tuple(self.reduce(list(p)) for p in zip(*parts))
+        out = parts[0]
+        for p in parts[1:]:
+            out = out + _to(p, self.devices[0])
+        return out
+
+
 def _normal_segments(obs, K: int, L: int):
     """The segment layouts of ``_build_normal_blocks``' three scatters
     (keyframe, landmark, keyframe-landmark pair), made once per solve; None
@@ -262,36 +304,58 @@ def bundle_adjust(
     camera system is dense ([6K, 6K]) and solved by LU with Jacobi
     scaling, as the reference does.
     """
+    R, t, Xc, chi2 = _bundle_adjust_shards(
+        R_cw, t_cw, X, Shards.single(obs), fixed_pose, fixed_point, cam_params, bf, iters,
+        use_huber, cam_model, rig)
+    delta2 = torch.where(obs.u_right >= 0, CHI2_STEREO, CHI2_MONO)
+    inlier = (chi2[0] <= delta2) & obs.valid
+    return BAResult(R, t, Xc, chi2[0], inlier)
+
+
+def _bundle_adjust_shards(R_cw, t_cw, X, shards: Shards, fixed_pose, fixed_point, cam_params, bf,
+                          iters, use_huber, cam_model, rig):
+    """``bundle_adjust``'s LM over an observation table in ``shards``: each
+    shard builds its normal blocks (the [K,6,L,3] coupling included) and
+    ``shards.reduce`` adds them; the reduced system is solved once, on the
+    state's device. Returns (R_cw, t_cw, X, each shard's final chi2)."""
     K = R_cw.shape[0]
     L = X.shape[0]
     dev, dt_ = X.device, X.dtype
-    delta2 = torch.where(obs.u_right >= 0, CHI2_STEREO, CHI2_MONO)
     eye3 = torch.eye(3, dtype=dt_, device=dev)
     eye6 = torch.eye(6, dtype=dt_, device=dev)
     kk = torch.arange(K, device=dev)
     free_p = (~fixed_pose).to(dt_)
     free_l = (~fixed_point).to(dt_)
     fp = fixed_pose[:, None].expand(K, 6).reshape(-1)
+    cams, rigs = shards.put(cam_params), shards.put(rig)
+    delta2s = [torch.where(o.u_right >= 0, CHI2_STEREO, CHI2_MONO) for o in shards.obs]
 
     def total_cost(R, t, Xc):
-        r, _, dok = factors.reproj_residuals(R, t, Xc, obs, cam_params, bf, cam_model, rig=rig)
-        chi2 = torch.sum(r * r, dim=-1) * obs.inv_sigma2
-        c = _robust_cost(chi2, delta2) if use_huber else chi2
-        return torch.sum(c * (obs.valid & dok)), chi2
+        parts, chi2s = [], []
+        for o, d2, cam, rg, (Rs, ts, Xs) in zip(shards.obs, delta2s, cams, rigs, shards.put((R, t, Xc))):
+            r, _, dok = factors.reproj_residuals(Rs, ts, Xs, o, cam, bf, cam_model, rig=rg)
+            chi2 = torch.sum(r * r, dim=-1) * o.inv_sigma2
+            c = _robust_cost(chi2, d2) if use_huber else chi2
+            parts.append(torch.sum(c * (o.valid & dok)))
+            chi2s.append(chi2)
+        return shards.reduce(parts), chi2s
 
     R, t, Xc = R_cw, t_cw, X
     lam = torch.full((), 1e-4, dtype=dt_, device=dev)  # no host copy
     best_cost, _ = total_cost(R, t, Xc)
-    segs = _normal_segments(obs, K, L)
+    segs = [_normal_segments(o, K, L) for o in shards.obs]
     for _ in range(iters):
-        r, row_mask, depth_ok = factors.reproj_residuals(R, t, Xc, obs, cam_params, bf, cam_model, rig=rig)
-        _, w_h, _ = _eval_weights(r, obs, use_huber)
-        w = obs.inv_sigma2 * w_h * (obs.valid & depth_ok)
-        # freeze contributions of fixed variables by zeroing their Jacobians
-        Hpp, Hll, bp, bl, Wpl = _build_normal_blocks(
-            R, t, Xc, obs._replace(valid=obs.valid & depth_ok),
-            cam_params, bf, w, row_mask, cam_model, rig=rig, segs=segs,
-        )
+        blocks = []
+        for o, cam, rg, sg, (Rs, ts, Xs) in zip(shards.obs, cams, rigs, segs, shards.put((R, t, Xc))):
+            r, row_mask, depth_ok = factors.reproj_residuals(Rs, ts, Xs, o, cam, bf, cam_model, rig=rg)
+            _, w_h, _ = _eval_weights(r, o, use_huber)
+            w = o.inv_sigma2 * w_h * (o.valid & depth_ok)
+            # freeze contributions of fixed variables by zeroing their Jacobians
+            blocks.append(_build_normal_blocks(
+                Rs, ts, Xs, o._replace(valid=o.valid & depth_ok),
+                cam, bf, w, row_mask, cam_model, rig=rg, segs=sg,
+            ))
+        Hpp, Hll, bp, bl, Wpl = shards.reduce(blocks)
         bp = bp * free_p[:, None]
         bl = bl * free_l[:, None]
         Wpl = Wpl * free_p[:, None, None, None] * free_l[None, None, :, None]
@@ -340,8 +404,7 @@ def bundle_adjust(
         best_cost = torch.where(accept, cost_new, best_cost)
     R = lie.project_to_so3(R)
     _, chi2 = total_cost(R, t, Xc)
-    inlier = (chi2 <= delta2) & obs.valid
-    return BAResult(R, t, Xc, chi2, inlier)
+    return R, t, Xc, chi2
 
 
 # ---------------------------------------------------------------------------
@@ -391,17 +454,42 @@ def _segment_sum(vals: torch.Tensor, seg: _Segments) -> torch.Tensor:
     return torch.where(seg.nonempty.reshape((-1,) + (1,) * (v.dim() - 1)), out, 0.0)
 
 
-def _schur_matvec(v, A, Hll_inv, kf, lm, Hpp_d, fixed_pose, seg_kf, seg_lm):
-    """S·v for v [K,6] without forming S = Hpp − W Hll⁻¹ Wᵀ.
+class ShardRows(NamedTuple):
+    """One shard's index columns and its sums per keyframe and per
+    landmark (each a function of an [O_shard, ...] array)."""
 
-    A [O,6,3] = w·Jpᵀ·Jl per observation (fixed rows/cols already zeroed),
-    Hll_inv [L,3,3], Hpp_d [K,6,6] damped pose blocks; ``seg_kf`` and
-    ``seg_lm`` the observations' segments by keyframe and landmark."""
+    kf: torch.Tensor
+    lm: torch.Tensor
+    sum_kf: object
+    sum_lm: object
+
+
+def _segment_rows(obs: Observations, K: int, L: int) -> ShardRows:
+    kf, lm = obs.kf.to(torch.int64), obs.lm.to(torch.int64)
+    seg_kf, seg_lm = _segments(kf, K), _segments(lm, L)
+    return ShardRows(kf, lm, lambda v: _segment_sum(v, seg_kf), lambda v: _segment_sum(v, seg_lm))
+
+
+def _wt(shards: Shards, rows, A, v):
+    """Wᵀ·v [L,3] for v [K,6], W = Σ_o A_o over the shards' rows (A: each
+    shard's [O_shard,6,3] blocks)."""
+    return shards.reduce([r.sum_lm((a.transpose(1, 2) @ vs[r.kf][..., None])[..., 0])
+                          for r, a, vs in zip(rows, A, shards.put(v))])
+
+
+def _w(shards: Shards, rows, A, y):
+    """W·y [K,6] for y [L,3]."""
+    return shards.reduce([r.sum_kf((a @ ys[r.lm][..., None])[..., 0])
+                          for r, a, ys in zip(rows, A, shards.put(y))])
+
+
+def _schur_matvec(v, shards, rows, A, Hll_inv, Hpp_d, fixed_pose):
+    """S·v for v [K,6] without forming S = Hpp − W Hll⁻¹ Wᵀ; ``A`` holds
+    each shard's per-observation blocks w·Jpᵀ·Jl (fixed rows/cols already
+    zeroed) and Hpp_d [K,6,6] the damped pose blocks."""
     # u = Wᵀ v per landmark, then y = Hll⁻¹ u, then W y per pose
-    u = _segment_sum((A.transpose(1, 2) @ v[kf][..., None])[..., 0], seg_lm)
-    y = (Hll_inv @ u[..., None])[..., 0]
-    Wy = _segment_sum((A @ y[lm][..., None])[..., 0], seg_kf)
-    Sv = (Hpp_d @ v[..., None])[..., 0] - Wy
+    y = (Hll_inv @ _wt(shards, rows, A, v)[..., None])[..., 0]
+    Sv = (Hpp_d @ v[..., None])[..., 0] - _w(shards, rows, A, y)
     return torch.where(fixed_pose[:, None], v, Sv)
 
 
@@ -454,40 +542,64 @@ def bundle_adjust_cg(
     instead of O(K·L·18). The per-observation blocks are summed per
     keyframe and per landmark with ``_segment_sum`` (deterministic).
     """
+    R, t, Xc, chi2 = _bundle_adjust_cg_shards(
+        R_cw, t_cw, X, Shards.single(obs), fixed_pose, fixed_point, cam_params, bf, iters,
+        cg_iters, use_huber, cam_model, rig)
+    delta2 = torch.where(obs.u_right >= 0, CHI2_STEREO, CHI2_MONO)
+    inlier = (chi2[0] <= delta2) & obs.valid
+    return BAResult(R, t, Xc, chi2[0], inlier)
+
+
+def _bundle_adjust_cg_shards(R_cw, t_cw, X, shards: Shards, fixed_pose, fixed_point, cam_params,
+                             bf, iters, cg_iters, use_huber, cam_model, rig):
+    """``bundle_adjust_cg``'s LM over an observation table in ``shards``:
+    each shard keeps its rows' blocks and sums them per keyframe and per
+    landmark, ``shards.reduce`` adds the sums, and the PCG runs on the
+    state's device with two reductions a product. Returns (R_cw, t_cw, X,
+    each shard's final chi2)."""
     K = R_cw.shape[0]
     L = X.shape[0]
     dev, dt_ = X.device, X.dtype
-    delta2 = torch.where(obs.u_right >= 0, CHI2_STEREO, CHI2_MONO)
     free_p = (~fixed_pose).to(dt_)
     free_l = (~fixed_point).to(dt_)
     eye3 = torch.eye(3, dtype=dt_, device=dev)
     eye6 = torch.eye(6, dtype=dt_, device=dev)
-    kf, lm = obs.kf.to(torch.int64), obs.lm.to(torch.int64)
-    seg_kf, seg_lm = _segments(kf, K), _segments(lm, L)
+    cams, rigs, free_ps, free_ls = (shards.put(x) for x in (cam_params, rig, free_p, free_l))
+    delta2s = [torch.where(o.u_right >= 0, CHI2_STEREO, CHI2_MONO) for o in shards.obs]
+    rows = [_segment_rows(o, K, L) for o in shards.obs]
 
     def total_cost(R, t, Xc):
-        r, _, dok = factors.reproj_residuals(R, t, Xc, obs, cam_params, bf, cam_model, rig=rig)
-        chi2 = torch.sum(r * r, dim=-1) * obs.inv_sigma2
-        c = _robust_cost(chi2, delta2) if use_huber else chi2
-        return torch.sum(c * (obs.valid & dok)), chi2
+        parts, chi2s = [], []
+        for o, d2, cam, rg, (Rs, ts, Xs) in zip(shards.obs, delta2s, cams, rigs, shards.put((R, t, Xc))):
+            r, _, dok = factors.reproj_residuals(Rs, ts, Xs, o, cam, bf, cam_model, rig=rg)
+            chi2 = torch.sum(r * r, dim=-1) * o.inv_sigma2
+            c = _robust_cost(chi2, d2) if use_huber else chi2
+            parts.append(torch.sum(c * (o.valid & dok)))
+            chi2s.append(chi2)
+        return shards.reduce(parts), chi2s
 
     R, t, Xc = R_cw, t_cw, X
     lam = torch.full((), 1e-4, dtype=dt_, device=dev)  # no host copy
     best_cost, _ = total_cost(R, t, Xc)
     for _ in range(iters):
-        r, row_mask, depth_ok = factors.reproj_residuals(R, t, Xc, obs, cam_params, bf, cam_model, rig=rig)
-        _, w_h, _ = _eval_weights(r, obs, use_huber)
-        w = obs.inv_sigma2 * w_h * (obs.valid & depth_ok)
-        Jp, Jl = factors.reproj_jacobians(R, t, Xc, obs, cam_params, bf, cam_model, rig=rig)
-        Jp = Jp * row_mask[:, :, None]
-        Jl = Jl * row_mask[:, :, None]
-        JpT, JlT = Jp.transpose(1, 2), Jl.transpose(1, 2)
-        w3 = w[:, None, None]
-        Hpp = _segment_sum(w3 * (JpT @ Jp), seg_kf)
-        Hll = _segment_sum(w3 * (JlT @ Jl), seg_lm)
-        bp = _segment_sum(-w[:, None] * (JpT @ r[..., None])[..., 0], seg_kf) * free_p[:, None]
-        bl = _segment_sum(-w[:, None] * (JlT @ r[..., None])[..., 0], seg_lm) * free_l[:, None]
-        A = (w * free_p[kf] * free_l[lm])[:, None, None] * (JpT @ Jl)  # [O,6,3]
+        sums, A = [], []
+        for o, rw, cam, rg, fps, fls, (Rs, ts, Xs) in zip(shards.obs, rows, cams, rigs, free_ps, free_ls,
+                                                          shards.put((R, t, Xc))):
+            r, row_mask, depth_ok = factors.reproj_residuals(Rs, ts, Xs, o, cam, bf, cam_model, rig=rg)
+            _, w_h, _ = _eval_weights(r, o, use_huber)
+            w = o.inv_sigma2 * w_h * (o.valid & depth_ok)
+            Jp, Jl = factors.reproj_jacobians(Rs, ts, Xs, o, cam, bf, cam_model, rig=rg)
+            Jp = Jp * row_mask[:, :, None]
+            Jl = Jl * row_mask[:, :, None]
+            JpT, JlT = Jp.transpose(1, 2), Jl.transpose(1, 2)
+            w3 = w[:, None, None]
+            sums.append((rw.sum_kf(w3 * (JpT @ Jp)), rw.sum_lm(w3 * (JlT @ Jl)),
+                         rw.sum_kf(-w[:, None] * (JpT @ r[..., None])[..., 0]),
+                         rw.sum_lm(-w[:, None] * (JlT @ r[..., None])[..., 0])))
+            A.append((w * fps[rw.kf] * fls[rw.lm])[:, None, None] * (JpT @ Jl))  # [O,6,3]
+        Hpp, Hll, bp, bl = shards.reduce(sums)
+        bp = bp * free_p[:, None]
+        bl = bl * free_l[:, None]
 
         tr3 = torch.diagonal(Hll, dim1=-2, dim2=-1).sum(-1)
         Hll_d = Hll + lam * eye3[None] * (tr3[:, None, None] / 3.0 + 1e-3)
@@ -498,15 +610,14 @@ def bundle_adjust_cg(
 
         # RHS: b_s = bp − W Hll⁻¹ bl
         y0 = (Hll_inv @ bl[..., None])[..., 0]
-        Wy0 = _segment_sum((A @ y0[lm][..., None])[..., 0], seg_kf)
-        b_s = torch.where(fixed_pose[:, None], 0.0, bp - Wy0)
+        b_s = torch.where(fixed_pose[:, None], 0.0, bp - _w(shards, rows, A, y0))
         # block-Jacobi preconditioner: S's diagonal blocks ≈ Hpp_d
         Minv = torch.linalg.inv_ex(Hpp_d)[0]
-        dp = _pcg(lambda v: _schur_matvec(v, A, Hll_inv, kf, lm, Hpp_d, fixed_pose, seg_kf, seg_lm),
+        dp = _pcg(lambda v: _schur_matvec(v, shards, rows, A, Hll_inv, Hpp_d, fixed_pose),
                   b_s, Minv, cg_iters)
         dp = dp * free_p[:, None]
         # back-substitute landmarks
-        u = _segment_sum((A.transpose(1, 2) @ dp[kf][..., None])[..., 0], seg_lm)
+        u = _wt(shards, rows, A, dp)
         dl = (Hll_inv @ (bl - u)[..., None])[..., 0] * free_l[:, None]
 
         dR, dt = lie.se3_exp(dp)
@@ -525,5 +636,4 @@ def bundle_adjust_cg(
         best_cost = torch.where(accept, cost_new, best_cost)
     R = lie.project_to_so3(R)
     _, chi2 = total_cost(R, t, Xc)
-    inlier = (chi2 <= delta2) & obs.valid
-    return BAResult(R, t, Xc, chi2, inlier)
+    return R, t, Xc, chi2

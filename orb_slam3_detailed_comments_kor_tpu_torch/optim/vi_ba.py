@@ -15,7 +15,9 @@ Reprojection Jacobians are analytic; the inertial edges' Jacobians come
 from forward-mode differentiation per edge, as the reference's
 ``vmap(jacfwd)``, evaluated in float64 (``jacfwd64``) and rounded to
 float32. ``vi_bundle_adjust`` solves the dense [15K x 15K] reduced system,
-``vi_bundle_adjust_cg`` the same model matrix-free by block-Jacobi PCG.
+``vi_bundle_adjust_cg`` the same model matrix-free by block-Jacobi PCG,
+over ``ba.Shards`` of the visual table (one block here, several in
+``parallel/dist_vi_ba``).
 
 Every sum over observations or edges is ``index_add_`` on the CPU, which
 adds in row order, and a segmented scan on the card (``ba._segment_sum``),
@@ -209,14 +211,26 @@ def _visual_rows(st, Xc, obs, cam_params, R_cb, t_cb, bf, delta2, cam_model, rig
     return r, w, Jp, Jl
 
 
+def _visual_cost(st, Xc, obs, cam_params, R_cb, t_cb, bf, delta2, cam_model, rig=None):
+    """Σ robust reprojection cost over ``obs``."""
+    R_cw, t_cw = _camera_pose(st, R_cb, t_cb)
+    r, _, dok = factors.reproj_residuals(R_cw, t_cw, Xc, obs, cam_params, bf, cam_model, rig=rig)
+    chi2 = torch.sum(r * r, dim=-1) * obs.inv_sigma2
+    return torch.sum(ba._robust_cost(chi2, delta2) * (obs.valid & dok))
+
+
 def _costs(st, Xc, obs, edges, cam_params, R_cb, t_cb, bf, gravity, delta2, cam_model,
            gyro_walk_info, acc_walk_info, prior_bg_info, prior_ba_info, bg0, ba0, free_kf, rig=None):
     """Total cost: robust reprojection + inertial + bias random walk + bias
     priors."""
-    R_cw, t_cw = _camera_pose(st, R_cb, t_cb)
-    r, _, dok = factors.reproj_residuals(R_cw, t_cw, Xc, obs, cam_params, bf, cam_model, rig=rig)
-    chi2 = torch.sum(r * r, dim=-1) * obs.inv_sigma2
-    c_vis = torch.sum(ba._robust_cost(chi2, delta2) * (obs.valid & dok))
+    c_vis = _visual_cost(st, Xc, obs, cam_params, R_cb, t_cb, bf, delta2, cam_model, rig)
+    return _plus_inertial_costs(c_vis, st, edges, gravity, gyro_walk_info, acc_walk_info, prior_bg_info,
+                                prior_ba_info, bg0, ba0, free_kf)
+
+
+def _plus_inertial_costs(c_vis, st, edges, gravity, gyro_walk_info, acc_walk_info, prior_bg_info,
+                         prior_ba_info, bg0, ba0, free_kf):
+    """c_vis + the inertial, bias random walk and bias prior costs."""
     r_in = inertial_residuals(st, edges, gravity)
     c_in = torch.sum(torch.einsum("ei,eij,ej->e", r_in, edges.info9, r_in) * edges.valid)
     dbg = st.bg[edges.j] - st.bg[edges.i]
@@ -378,24 +392,35 @@ def vi_bundle_adjust_cg(
     matrix-free Schur landmark elimination and block-Jacobi PCG on the
     [K,15] reduced system, so K and L can be map-capacity sized (memory
     O(obs + E·576 + K·225)). Returns (VIState, X, costs [iters+1])."""
+    kf, lm = obs.kf.to(torch.int64), obs.lm.to(torch.int64)
+    stc, Xc, costs = _vi_bundle_adjust_cg_shards(
+        st, X, ba.Shards.single(obs._replace(kf=kf, lm=lm)), edges, fixed_kf, fixed_point, cam_params,
+        R_cb, t_cb, bf, gravity, gyro_walk_info, acc_walk_info, prior_bg_info, prior_ba_info, iters,
+        cg_iters, cam_model, rig)
+    return stc, Xc, torch.stack(costs)
+
+
+def _vi_bundle_adjust_cg_shards(st, X, shards, edges, fixed_kf, fixed_point, cam_params, R_cb, t_cb, bf,
+                                gravity, gyro_walk_info, acc_walk_info, prior_bg_info, prior_ba_info, iters,
+                                cg_iters, cam_model, rig):
+    """``vi_bundle_adjust_cg``'s LM over a visual table in ``shards``
+    (int64 index columns): each shard sums its reprojection blocks and
+    ``shards.reduce`` adds them; the inertial chain, the bias random walks
+    and priors and the PCG are computed once, on the state's device.
+    Returns (VIState, X, the costs of each iteration)."""
     K, L, P = st.R_bw.shape[0], X.shape[0], 15
     dev, dt_ = X.device, X.dtype
     eye3 = torch.eye(3, dtype=dt_, device=dev)
     eyeP = torch.eye(P, dtype=dt_, device=dev)
-    delta2 = torch.where(obs.u_right >= 0, factors.CHI2_STEREO, factors.CHI2_MONO)
+    delta2s = [torch.where(o.u_right >= 0, factors.CHI2_STEREO, factors.CHI2_MONO) for o in shards.obs]
     free_kf = (~fixed_kf).to(dt_)
     free_l = (~fixed_point).to(dt_)
     bg0, ba0 = st.bg, st.ba
-    kf, lm = obs.kf.to(torch.int64), obs.lm.to(torch.int64)
-    obs = obs._replace(kf=kf, lm=lm)
     ei, ej = edges.i.to(torch.int64), edges.j.to(torch.int64)
     w_edge = edges.valid.to(dt_)
-    cost = functools.partial(
-        _costs, obs=obs, edges=edges, cam_params=cam_params, R_cb=R_cb, t_cb=t_cb, bf=bf,
-        gravity=gravity, delta2=delta2, cam_model=cam_model, gyro_walk_info=gyro_walk_info,
-        acc_walk_info=acc_walk_info, prior_bg_info=prior_bg_info, prior_ba_info=prior_ba_info,
-        bg0=bg0, ba0=ba0, free_kf=free_kf, rig=rig)
-    sum_kf, sum_lm = _summer(kf, K), _summer(lm, L)
+    cams, rigs, R_cbs, t_cbs, free_kfs, free_ls = (
+        shards.put(x) for x in (cam_params, rig, R_cb, t_cb, free_kf, free_l))
+    rows = [ba.ShardRows(o.kf, o.lm, _summer(o.kf, K), _summer(o.lm, L)) for o in shards.obs]
     sum_i, sum_j = _summer(ei, K), _summer(ej, K)
     is_j, _ = _l24(dev)
     free24 = free_kf[torch.stack([ei, ej], -1)[:, is_j]]  # [E,24]
@@ -404,6 +429,14 @@ def vi_bundle_adjust_cg(
                     torch.zeros((3,), dtype=dt_, device=dev) + prior_bg_info,
                     torch.zeros((3,), dtype=dt_, device=dev) + prior_ba_info])
     E = ei.shape[0]
+
+    def cost(stc, Xc):
+        c_vis = shards.reduce([
+            _visual_cost(s_, X_, o, cam, Rc, tc, bf, d2, cam_model, rg)
+            for o, d2, cam, rg, Rc, tc, (s_, X_) in zip(shards.obs, delta2s, cams, rigs, R_cbs, t_cbs,
+                                                        shards.put((stc, Xc)))])
+        return _plus_inertial_costs(c_vis, stc, edges, gravity, gyro_walk_info, acc_walk_info, prior_bg_info,
+                                    prior_ba_info, bg0, ba0, free_kf)
 
     def pad(block, r0, c0):
         """A [E, a, b] block placed at (r0, c0) of [E, P, P] zeros."""
@@ -420,14 +453,19 @@ def vi_bundle_adjust_cg(
     costs = [best]
     for _ in range(iters):
         # ---- visual blocks (body-pose tangent, dims 0:6) ----------------
-        r, w, Jp, Jl = _visual_rows(stc, Xc, obs, cam_params, R_cb, t_cb, bf, delta2, cam_model, rig)
-        JpT, JlT = Jp.transpose(1, 2), Jl.transpose(1, 2)
-        w3 = w[:, None, None]
-        Hpp6 = sum_kf(w3 * (JpT @ Jp))
-        Hll = sum_lm(w3 * (JlT @ Jl))
-        bp6 = sum_kf(-w[:, None] * (JpT @ r[..., None])[..., 0]) * free_kf[:, None]
-        bl = sum_lm(-w[:, None] * (JlT @ r[..., None])[..., 0]) * free_l[:, None]
-        A = (w * free_kf[kf] * free_l[lm])[:, None, None] * (JpT @ Jl)  # [O,6,3]
+        sums, A = [], []
+        for o, d2, rw, cam, rg, Rc, tc, fks, fls, (s_, X_) in zip(
+                shards.obs, delta2s, rows, cams, rigs, R_cbs, t_cbs, free_kfs, free_ls, shards.put((stc, Xc))):
+            r, w, Jp, Jl = _visual_rows(s_, X_, o, cam, Rc, tc, bf, d2, cam_model, rg)
+            JpT, JlT = Jp.transpose(1, 2), Jl.transpose(1, 2)
+            w3 = w[:, None, None]
+            sums.append((rw.sum_kf(w3 * (JpT @ Jp)), rw.sum_lm(w3 * (JlT @ Jl)),
+                         rw.sum_kf(-w[:, None] * (JpT @ r[..., None])[..., 0]),
+                         rw.sum_lm(-w[:, None] * (JlT @ r[..., None])[..., 0])))
+            A.append((w * fks[rw.kf] * fls[rw.lm])[:, None, None] * (JpT @ Jl))  # [O,6,3]
+        Hpp6, Hll, bp6, bl = shards.reduce(sums)
+        bp6 = bp6 * free_kf[:, None]
+        bl = bl * free_l[:, None]
         tr3 = torch.diagonal(Hll, dim1=-2, dim2=-1).sum(-1)
         Hll_d = Hll + lam * eye3[None] * (tr3[:, None, None] / 3.0 + 1e-3)
         Hll_d = torch.where(fixed_point[:, None, None], eye3[None], Hll_d)
@@ -444,7 +482,7 @@ def vi_bundle_adjust_cg(
 
         # ---- RHS --------------------------------------------------------
         y0 = (Hll_inv @ bl[..., None])[..., 0]
-        Wy0 = sum_kf((A @ y0[lm][..., None])[..., 0])
+        Wy0 = ba._w(shards, rows, A, y0)
         rows_i = Jt_r[:, 0:15]
         rows_j = torch.nn.functional.pad(Jt_r[:, 15:24], (0, P - 9))
         for d0, wgt, db in walks:
@@ -470,9 +508,8 @@ def vi_bundle_adjust_cg(
         def matvec(v):
             """S·v for v [K,P]: the visual Schur part on dims 0:6 plus the
             inertial and walk couplings."""
-            u = sum_lm((A.transpose(1, 2) @ v[:, 0:6][kf][..., None])[..., 0])
-            y = (Hll_inv @ u[..., None])[..., 0]
-            Wy = sum_kf((A @ y[lm][..., None])[..., 0])
+            y = (Hll_inv @ ba._wt(shards, rows, A, v[:, 0:6])[..., None])[..., 0]
+            Wy = ba._w(shards, rows, A, y)
             Sv = (D_d @ v[..., None])[..., 0] - torch.nn.functional.pad(Wy, (0, P - 6))
             vi, vj = v[ei], v[ej]
             ri = (JtW_ij @ vj[:, 0:9, None])[..., 0]
@@ -486,7 +523,7 @@ def vi_bundle_adjust_cg(
 
         Minv = torch.linalg.inv_ex(D_d)[0]
         dx = ba._pcg(matvec, b, Minv, cg_iters) * free_kf[:, None]
-        u = sum_lm((A.transpose(1, 2) @ dx[:, 0:6][kf][..., None])[..., 0])
+        u = ba._wt(shards, rows, A, dx[:, 0:6])
         dl = (Hll_inv @ (bl - u)[..., None])[..., 0] * free_l[:, None]
 
         st_new, X_new = _step(stc, Xc, dx, dl)
@@ -498,4 +535,4 @@ def vi_bundle_adjust_cg(
         best = torch.where(accept, cost_new, best)
         costs.append(cost_new)
     stc = stc._replace(R_bw=lie.project_to_so3(stc.R_bw))
-    return stc, Xc, torch.stack(costs)
+    return stc, Xc, costs

@@ -30,6 +30,7 @@ from orb_slam3_detailed_comments_kor_tpu_torch.models import camera as cam_mod
 from orb_slam3_detailed_comments_kor_tpu_torch.models import vocabulary as voc
 from orb_slam3_detailed_comments_kor_tpu_torch.ops import matching, ransac
 from orb_slam3_detailed_comments_kor_tpu_torch.optim import ba, factors, pose_graph
+from orb_slam3_detailed_comments_kor_tpu_torch.parallel import dist_ba
 from orb_slam3_detailed_comments_kor_tpu_torch.slam import map_state as msx
 from orb_slam3_detailed_comments_kor_tpu_torch.utils import lie
 from orb_slam3_detailed_comments_kor_tpu_torch.utils.host_read import HostRead
@@ -528,8 +529,24 @@ def _global_ba_core(ms: msx.MapState, cam_params, bf, iters: int = 8,
     return ms._replace(kf_R_cw=res.R_cw, kf_t_cw=res.t_cw, lm_pos=res.X), cost
 
 
+#: the mesh of ``global_ba``'s sharded branch; None: ``dist_ba.make_mesh``
+#: for the map's device (every visible card, as the reference takes every
+#: JAX device; one shard on the CPU)
+_GBA_MESH = None
+
+
 def global_ba(ms: msx.MapState, cam_params, bf, iters: int = 8,
               cam_model: str = "pinhole", rig=None):
-    """GBA on one device (the reference's observation-sharded multi-device
-    branch belongs to ``parallel/dist_ba``, not ported). Returns (ms', cost)."""
+    """Production GBA dispatch: the one-device PCG Schur solve, or, when
+    the mesh has more than one shard, the observation-sharded
+    ``dist_ba.distributed_bundle_adjust_cg``, whose cost is None. Returns
+    (ms', cost)."""
+    mesh = dist_ba.resolve_mesh(_GBA_MESH, ms.kf_R_cw.device)
+    if len(mesh) > 1:
+        obs, fixed_pose, fixed_point = map_observations(ms, with_rig=rig is not None)
+        R, t, X = dist_ba.distributed_bundle_adjust_cg(
+            mesh, ms.kf_R_cw, ms.kf_t_cw, ms.lm_pos, obs, fixed_pose, fixed_point, cam_params, bf,
+            iters=iters, cg_iters=24, cam_model=cam_model, rig=rig,
+        )
+        return ms._replace(kf_R_cw=R, kf_t_cw=t, lm_pos=X), None
     return _global_ba_core(ms, cam_params, bf, iters=iters, cam_model=cam_model, rig=rig)

@@ -62,6 +62,7 @@ from orb_slam3_detailed_comments_kor_tpu_torch.ops import matching, ransac, twov
 from orb_slam3_detailed_comments_kor_tpu_torch.ops import orb as orb_ops
 from orb_slam3_detailed_comments_kor_tpu_torch.ops.stereo import _nanmedian
 from orb_slam3_detailed_comments_kor_tpu_torch.optim import ba, vio
+from orb_slam3_detailed_comments_kor_tpu_torch.parallel import dist_ba, dist_vi_ba
 from orb_slam3_detailed_comments_kor_tpu_torch.slam import checkpoint, frontend, inertial
 from orb_slam3_detailed_comments_kor_tpu_torch.slam import map_merging
 from orb_slam3_detailed_comments_kor_tpu_torch.slam import map_state as msx
@@ -1062,11 +1063,12 @@ class SlamSystem:
     def _service_gba(self) -> None:
         """Dispatch one pending GBA slice (2 LM iterations over the whole
         map) and adapt the remaining budget to its cost. Inertial maps take
-        FullInertialBA slices (``LoopClosing.cc:2287-2289``): up to 128
+        FullInertialBA slices (``LoopClosing.cc:2287-2289``): on a mesh of
+        more than one shard the observation-sharded whole-map solve
+        (``dist_vi_ba``, cost None) at any keyframe count; else up to 128
         keyframe slots a sweep of the init-FIBA window program (window
         slices; their costs are local and feed no budget), above that the
-        whole-map PCG solve. (The reference's multi-device branch,
-        ``parallel/dist_vi_ba``, is not ported.)"""
+        whole-map PCG solve."""
         if self._gba_chunks_left > 0:
             with self.timer.span("mapping/gba_chunk"):
                 if self.cfg.is_inertial and self.imu_initialized:
@@ -1083,6 +1085,12 @@ class SlamSystem:
 
     def _inertial_gba_slice(self):
         cam = self.cfg.camera
+        if len(dist_ba.resolve_mesh(dist_vi_ba._VI_GBA_MESH, self.device)) > 1:
+            self.ms, self.ikf, cost = dist_vi_ba.distributed_full_inertial_ba(
+                self.ms, self.ikf, self.gravity, self.cam_params, self.R_cb, self.t_cb, cam.bf,
+                iters=2, cam_model=self.cam_model, rig=self.rig,
+            )
+            return cost
         if self.ms.K <= 128:
             W = self._INIT_FIBA_WINDOW
             n1 = self.n_kf - 1

@@ -36,7 +36,10 @@ TRANS_TOL / ROT_TOL); tracked frames of the small stereo,
 stereo-inertial and monocular passes fed numpy images under the sync
 debug mode (no synchronizing call outside the batched decision read); and
 a loop closer training its vocabulary online, card against CPU (the same
-centroids, database rows within 1e-5).
+centroids, database rows within 1e-5); and the three sharded solvers of
+``parallel/`` at small sizes: one shard of the card gives the one-device
+solver's bits, four shards of it give the same bits twice and stay within
+tests/test_dist_ba.py's distributed-versus-single bounds of one shard.
 """
 
 import pytest
@@ -470,3 +473,41 @@ def test_online_vocabulary_card_matches_cpu(dev):
         out = torch.zeros((ids.shape[0], lc.vocab.n_words + 1))
         return out.scatter_add_(1, torch.where(ids >= 0, ids, lc.vocab.n_words), torch.where(ids >= 0, wts, 0.0))
     assert float((dense(card) - dense(host)).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("kind", ["cg", "dense", "vi"])
+def test_sharded_solvers_on_the_card(dev, kind):
+    # a one-shard mesh on the card gives the one-device solver's bits; four
+    # shards of the card give the same bits twice (the ordered reduction)
+    # and stay within tests/test_dist_ba.py's distributed-versus-single
+    # bounds of one shard
+    from orb_slam3_detailed_comments_kor_tpu_torch.optim import ba, vi_ba
+    from orb_slam3_detailed_comments_kor_tpu_torch.parallel import dist_ba, dist_vi_ba, dryrun
+
+    K, L, n = (4, 64, 64) if kind == "dense" else (8, 512, 64)
+    R, t, X, obs, fp, fl = dryrun.make_problem(K, L, n, 3, dev)
+    g = torch.Generator().manual_seed(3)
+    t = t + torch.where(fp[:, None].cpu(), 0.0, 0.01 * torch.randn((K, 3), generator=g)).to(dev)
+    X = X + (0.02 * torch.randn(X.shape, generator=g)).to(dev)
+    cam = torch.tensor(dryrun.CAM, device=dev)
+    if kind == "vi":
+        st = vi_ba.VIState(R, t, torch.zeros_like(t), torch.zeros_like(t), torch.zeros_like(t))
+        args = (X, obs, dryrun.static_chain(K, dev), fp, fl, cam, torch.eye(3, device=dev),
+                torch.zeros(3, device=dev), dryrun.BF, torch.zeros(3, device=dev))
+        kw = dict(gyro_walk_info=vi_ba.WALK_INFO_CAP, acc_walk_info=vi_ba.WALK_INFO_CAP, iters=2)
+        one_device = vi_ba.vi_bundle_adjust_cg(st, *args, **kw)[:2]
+        run = lambda mesh: dist_vi_ba.distributed_vi_ba_cg(mesh, st, *args, **kw)
+        flat = lambda out: (out[0].t_bw, out[1], out[0].v, out[0].R_bw)
+    else:
+        solver = ba.bundle_adjust_cg if kind == "cg" else ba.bundle_adjust
+        sharded = dist_ba.distributed_bundle_adjust_cg if kind == "cg" else dist_ba.distributed_bundle_adjust
+        kw = dict(iters=2, cg_iters=24) if kind == "cg" else dict(iters=2)  # the defaults differ
+        one_device = solver(R, t, X, obs, fp, fl, cam, dryrun.BF, **kw)[:3]
+        run = lambda mesh: sharded(mesh, R, t, X, obs, fp, fl, cam, dryrun.BF, **kw)
+        flat = lambda out: (out[1], out[2], out[0])
+    one, four_a, four_b = run([dev]), run([dev] * 4), run([dev] * 4)
+    assert all(torch.equal(a, b) for a, b in zip(flat(one_device), flat(one)))
+    assert all(torch.equal(a, b) for a, b in zip(flat(four_a), flat(four_b)))
+    assert float((flat(four_a)[0] - flat(one)[0]).abs().max()) <= 2e-3
+    assert float((flat(four_a)[1] - flat(one)[1]).abs().max()) <= 5e-3
+    assert float((flat(one)[0] - t).abs().max()) > 1e-3  # the solve moved the poses

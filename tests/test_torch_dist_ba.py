@@ -1,0 +1,295 @@
+"""The port's observation-sharded solvers (``parallel/dist_ba``,
+``parallel/dist_vi_ba``, ``parallel/dryrun``) on the CPU: against the JAX
+reference's distributed solvers, and against the port's one-device
+solvers. Also the synthetic runner's ``spin`` and ``orbit`` motions and
+the one-image ``extract_orb`` against the reference's.
+
+Meshes: the port's 8-shard CPU mesh is eight entries of the one CPU
+device; the reference's is ``dist_ba.make_mesh(8)`` over the tests' eight
+virtual devices (``tests/conftest.py``). Each reference distributed visual
+solver is called once (each call compiles over the eight devices for
+15-20 s here); the reference's VI solver compiles for minutes, so
+``tools/torch_dist_parity.py`` holds the port's to it instead.
+
+Problems: ``tests/test_dist_ba.py``'s, made by ``test_ba.make_world``
+(the 33-point padding problem started off its ground truth, numpy seed
+12, so that the solve moves it) and, for the VI solver, the problem of
+``test_vi_ba.build_vi_problem`` built with the port's modules.
+
+Tolerances: against the reference, the port's one-device tolerances of
+``test_torch_ba.py`` (poses 1e-4 rad and 1e-4 m, points 1e-3 m; the PCG
+case's points 2e-3 m, see its test). One shard
+against the port's one-device solver: the same bits (the sharded solvers
+are those solvers run over ``ba.Shards``). Eight shards against one: the
+reference's own distributed-versus-single bounds in
+``tests/test_dist_ba.py`` (poses 2e-3 m, points 5e-3 m, velocities 2e-2).
+``make_trajectory``: translations exactly, rotations within 3e-7 (torch's
+float32 sine and cosine differ from XLA's by one ulp on 6 of the 60
+``spin`` yaws, which moves rotation entries by up to 2.4e-7; the ``arc``
+motion, ported before, differs alike).
+``extract_orb``: levels, validity and descriptors exactly; keypoints
+within 1e-4 px, responses 1e-3 relative and angles 1e-3 rad (the pyramid's
+resize rounds differently, as ``test_torch_frontend.py`` states for the
+batched extractor).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+import test_ba  # noqa: E402
+import test_vi_ba  # noqa: E402
+from orb_slam3_detailed_comments_kor_tpu.io import synthetic as jsyn  # noqa: E402
+from orb_slam3_detailed_comments_kor_tpu.ops import orb as jorb  # noqa: E402
+from orb_slam3_detailed_comments_kor_tpu.parallel import dist_ba as jdist  # noqa: E402
+from orb_slam3_detailed_comments_kor_tpu.utils import lie as jlie  # noqa: E402
+from orb_slam3_detailed_comments_kor_tpu_torch.io import synthetic as tsyn  # noqa: E402
+from orb_slam3_detailed_comments_kor_tpu_torch.ops import imu as timu  # noqa: E402
+from orb_slam3_detailed_comments_kor_tpu_torch.ops import orb as torb  # noqa: E402
+from orb_slam3_detailed_comments_kor_tpu_torch.optim import ba as tba  # noqa: E402
+from orb_slam3_detailed_comments_kor_tpu_torch.optim import factors as tf  # noqa: E402
+from orb_slam3_detailed_comments_kor_tpu_torch.optim import vi_ba as tvb  # noqa: E402
+from orb_slam3_detailed_comments_kor_tpu_torch.parallel import dist_ba, dist_vi_ba, dryrun  # noqa: E402
+from orb_slam3_detailed_comments_kor_tpu_torch.utils import lie as tlie  # noqa: E402
+
+CPU = torch.device("cpu")
+MESH8 = [CPU] * 8
+BOUNDS = dict(pose_m=2e-3, point_m=5e-3, vel=2e-2)  # tests/test_dist_ba.py
+CG_KW = dict(iters=4, cg_iters=30)
+DENSE_KW = dict(iters=3)
+
+
+def T(a):
+    a = np.asarray(a)
+    return torch.from_numpy(a.astype(np.int64) if a.dtype == np.int32 else a.copy())
+
+
+def torch_obs(o):
+    return tf.Observations(*(None if x is None else T(x) for x in o))
+
+
+def rotation_angles(Ra, Rb):
+    M = np.einsum("kji,kjl->kil", np.asarray(Ra, np.float64), np.asarray(Rb, np.float64))
+    skew = np.stack([M[:, 2, 1] - M[:, 1, 2], M[:, 0, 2] - M[:, 2, 0], M[:, 1, 0] - M[:, 0, 1]], -1)
+    return np.arcsin(np.clip(np.linalg.norm(skew, axis=1) / 2.0, 0.0, 1.0))
+
+
+@jax.jit  # one compilation, where the eager ops would compile one by one
+def cg_problem():
+    """test_dist_ba's PCG problem: 150 points, 5 stereo poses, 0.3 px noise,
+    the poses and points perturbed (the first pose fixed)."""
+    key = jax.random.PRNGKey(13)
+    R_gt, t_gt, X_gt = test_ba.make_world(key, n_points=150, n_poses=5)
+    obs = test_ba.project_all(R_gt, t_gt, X_gt, stereo=True)
+    k1, k2, k3 = jax.random.split(key, 3)
+    obs = obs._replace(uv=obs.uv + 0.3 * jax.random.normal(k1, obs.uv.shape))
+    xi = 0.02 * jax.random.normal(k2, (5, 6)).at[0].set(0.0)
+    dR, dt = jlie.se3_exp(xi)
+    R0 = dR @ R_gt
+    t0 = jnp.einsum("kij,kj->ki", dR, t_gt) + dt
+    X0 = X_gt + 0.05 * jax.random.normal(k3, X_gt.shape)
+    return R0, t0, X0, obs, jnp.zeros((5,), bool).at[0].set(True), jnp.zeros((150,), bool)
+
+
+@jax.jit
+def _padding_world():
+    R_gt, t_gt, X_gt = test_ba.make_world(jax.random.PRNGKey(12), n_points=33, n_poses=2)
+    return R_gt, t_gt, X_gt, test_ba.project_all(R_gt, t_gt, X_gt, stereo=False)
+
+
+def padding_problem():
+    """test_dist_ba's padding problem (33 points, 2 mono poses: 66 rows,
+    which 8 shards do not divide), started off its ground truth."""
+    R_gt, t_gt, X_gt, obs = _padding_world()
+    rng = np.random.RandomState(12)
+    t0 = np.asarray(t_gt) + np.r_[np.zeros((1, 3)), rng.normal(0, 0.01, (1, 3))].astype(np.float32)
+    X0 = np.asarray(X_gt) + rng.normal(0, 0.02, X_gt.shape).astype(np.float32)
+    return R_gt, jnp.asarray(t0), jnp.asarray(X0), obs, jnp.zeros((2,), bool).at[0].set(True), jnp.zeros((33,), bool)
+
+
+def as_torch(prob):
+    R, t, X, obs, fp, fl = prob
+    return T(R), T(t), T(X), torch_obs(obs), T(fp), T(fl)
+
+
+@pytest.fixture(scope="module")
+def reference():
+    """The reference's distributed solvers, once each, on 8 devices."""
+    mesh = jdist.make_mesh(8)
+    cg, pad = cg_problem(), padding_problem()
+    out_cg = jdist.distributed_bundle_adjust_cg(mesh, *cg, test_ba.CAM, test_ba.BF, **CG_KW)
+    out_dense = jdist.distributed_bundle_adjust(mesh, *pad, test_ba.CAM, test_ba.BF, **DENSE_KW)
+    npy = lambda out: [np.asarray(x) for x in out]
+    return dict(cg=(cg, npy(out_cg)), dense=(pad, npy(out_dense)))
+
+
+def port_solve(kind, mesh, prob):
+    R, t, X, obs, fp, fl = as_torch(prob)
+    cam = T(test_ba.CAM)
+    if kind == "cg":
+        return dist_ba.distributed_bundle_adjust_cg(mesh, R, t, X, obs, fp, fl, cam, test_ba.BF, **CG_KW)
+    return dist_ba.distributed_bundle_adjust(mesh, R, t, X, obs, fp, fl, cam, test_ba.BF, **DENSE_KW)
+
+
+@pytest.mark.parametrize("kind,point_tol", [("cg", 2e-3), ("dense", 1e-3)])
+def test_eight_shards_match_reference_distributed(reference, kind, point_tol):
+    """The PCG case's points within 2e-3 m: measured 1.27e-3 m, at a point
+    5 m out. The reference's distributed solve itself departs by as much
+    from the reference's one-device ``bundle_adjust_cg`` on this problem
+    (4 LM iterations of truncated PCG, 0.3 px noise), while the port's 8
+    shards stay within 1e-5 m of that one-device solve."""
+    prob, ref = reference[kind]
+    got = [x.numpy() for x in port_solve(kind, MESH8, prob)]
+    assert np.abs(ref[1] - np.asarray(prob[1])).max() > 2e-3  # the solve moved the poses
+    assert rotation_angles(ref[0], got[0]).max() <= 1e-4
+    assert np.abs(ref[1] - got[1]).max() <= 1e-4
+    assert np.abs(ref[2] - got[2]).max() <= point_tol
+
+
+def vi_problem():
+    """``test_vi_ba.build_vi_problem``'s VI problem (6 keyframes 0.25 s apart
+    on the analytic trajectory, 150 landmarks seen by every keyframe,
+    1 kHz preintegrations) made with the port's own modules, the
+    landmarks and the perturbation (as ``test_dist_ba``'s) from numpy seed
+    21."""
+    rng = np.random.RandomState(21)
+    traj = tsyn.AnalyticTrajectory(device="cpu")
+    times = [0.5 + 0.25 * i for i in range(6)]
+    R_wb, p_wb = (torch.stack(x) for x in zip(*(traj.pose(t) for t in times)))
+    R_bw = R_wb.transpose(1, 2)
+    t_bw = -(R_bw @ p_wb[..., None])[..., 0]
+    v = torch.stack([traj.velocity(t) for t in times])
+    L = 150
+    X = torch.from_numpy(rng.uniform([-2.0, -1.2, 2.0], [2.0, 1.2, 5.0], (L, 3)).astype(np.float32))
+    kf, lm = torch.arange(6).repeat_interleave(L), torch.arange(L).repeat(6)
+    pc = (R_bw[kf] @ X[lm][..., None])[..., 0] + t_bw[kf]
+    pred, _ = tf.project_with_jac(T(test_vi_ba.CAM), pc, test_vi_ba.BF)
+    in_img = (pred[:, 0] > 5) & (pred[:, 0] < 371) & (pred[:, 1] > 5) & (pred[:, 1] < 235) & (pc[:, 2] > 0.3)
+    obs = tf.Observations(kf=kf, lm=lm, uv=pred[:, :2], u_right=torch.where(in_img, pred[:, 2], -1.0),
+                          inv_sigma2=torch.ones(6 * L), valid=in_img)
+    zero = torch.zeros(3)
+    pres = [timu.integrate(traj.imu_batch(a, b, 1000.0, 512), zero, zero, test_vi_ba.SIGMA_G, test_vi_ba.SIGMA_A)
+            for a, b in zip(times[:-1], times[1:])]
+    edges = tvb.make_edges(pres, range(5), range(1, 6))
+    xi = torch.from_numpy(np.r_[np.zeros((1, 6)), rng.normal(0, 0.01, (5, 6))].astype(np.float32))
+    dR, dt = tlie.se3_exp(xi)
+    st0 = tvb.VIState(R_bw=dR @ R_bw, t_bw=(dR @ t_bw[..., None])[..., 0] + dt,
+                      v=v + torch.from_numpy(rng.normal(0, 0.05, (6, 3)).astype(np.float32)),
+                      bg=torch.zeros((6, 3)), ba=torch.zeros((6, 3)))
+    X0 = X + torch.from_numpy(rng.normal(0, 0.02, (L, 3)).astype(np.float32))
+    return st0, X0, obs, edges, torch.arange(6) == 0, torch.zeros((L,), dtype=torch.bool)
+
+
+VI_ARGS = (T(test_vi_ba.CAM), torch.eye(3), torch.zeros(3), test_vi_ba.BF, T(test_vi_ba.G))
+VI_KW = dict(gyro_walk_info=tvb.WALK_INFO_CAP, acc_walk_info=tvb.WALK_INFO_CAP, iters=4)
+
+
+@pytest.fixture(scope="module")
+def vi():
+    return vi_problem()
+
+
+def solve(kind, mesh, prob):
+    """(poses, points[, velocities]) of one sharded solve; mesh None: the
+    port's one-device solver."""
+    if kind == "vi":
+        st, X, obs, edges, fk, fl = prob
+        if mesh is None:
+            st_f, X_f, _ = tvb.vi_bundle_adjust_cg(st, X, obs, edges, fk, fl, *VI_ARGS, **VI_KW)
+        else:
+            st_f, X_f = dist_vi_ba.distributed_vi_ba_cg(mesh, st, X, obs, edges, fk, fl, *VI_ARGS, **VI_KW)
+        return st_f.R_bw, st_f.t_bw, X_f, st_f.v
+    if mesh is not None:
+        return port_solve(kind, mesh, prob)
+    R, t, X, obs, fp, fl = as_torch(prob)
+    fn = tba.bundle_adjust_cg if kind == "cg" else tba.bundle_adjust
+    res = fn(R, t, X, obs, fp, fl, T(test_ba.CAM), test_ba.BF, **(CG_KW if kind == "cg" else DENSE_KW))
+    return res.R_cw, res.t_cw, res.X
+
+
+def problem(kind, vi):
+    return {"cg": cg_problem, "dense": padding_problem}[kind]() if kind != "vi" else vi
+
+
+@pytest.mark.parametrize("kind", ["cg", "dense", "vi"])
+def test_one_shard_gives_one_device_bits(vi, kind):
+    prob = problem(kind, vi)
+    one_device = solve(kind, None, prob)
+    one_shard = solve(kind, [CPU], prob)
+    for a, b in zip(one_device, one_shard):
+        assert torch.equal(a, b)
+    t0 = prob[0].t_bw if kind == "vi" else T(prob[1])
+    assert (one_shard[1] - t0).abs().max() > 1e-3  # the solve moved the poses
+
+
+@pytest.mark.parametrize("kind", ["cg", "dense", "vi"])
+def test_eight_shards_within_single_bounds(vi, kind):
+    prob = problem(kind, vi)
+    one, eight = solve(kind, [CPU], prob), solve(kind, MESH8, prob)
+    assert (eight[1] - one[1]).abs().max() <= BOUNDS["pose_m"]
+    assert (eight[2] - one[2]).abs().max() <= BOUNDS["point_m"]
+    if kind == "vi":
+        assert (eight[3] - one[3]).abs().max() <= BOUNDS["vel"]
+    # and twice on eight shards: the ordered reduction gives the same bits
+    assert all(torch.equal(a, b) for a, b in zip(eight, solve(kind, MESH8, prob)))
+
+
+def test_pad_obs_to_devices():
+    R, t, X, obs, fp, fl = as_torch(padding_problem())
+    padded = dist_ba.pad_obs_to_devices(obs, 8)
+    O = obs.kf.shape[0]
+    assert padded.kf.shape[0] % 8 == 0 and padded.kf.shape[0] - O == (-O) % 8
+    assert not padded.valid[O:].any() and (padded.u_right[O:] == -1.0).all()
+    assert padded.kf.dtype == torch.int64 and padded.lm.dtype == torch.int64
+    shards = dist_ba.shard_observations(obs, MESH8)
+    assert len(shards.obs) == 8 and all(o.kf.shape[0] == padded.kf.shape[0] // 8 for o in shards.obs)
+    assert dist_ba.pad_obs_to_devices(obs, 1) is obs
+
+
+def test_make_mesh_on_the_cpu():
+    assert dist_ba.make_mesh(device="cpu") == [CPU]
+    assert dist_ba.make_mesh(8, device="cpu") == MESH8
+    assert dist_ba.resolve_mesh(None, CPU) == [CPU] and dist_ba.resolve_mesh(MESH8, CPU) == MESH8
+
+
+def test_dryrun_small():
+    """The dry run's three cases at small sizes on 1 and 8 shards: finite,
+    the same bits on one shard as the one-device solvers give them (checked
+    above), and within the distributed bounds of each other."""
+    sizes = dict(dense=(4, 64, 64, 2), gba=(8, 512, 64, 1, 8), inertial=(6, 256, 64, 1, 8))
+    one = dryrun.dryrun_multichip([CPU], **sizes)
+    eight = dryrun.dryrun_multichip(MESH8, **sizes)
+    for name in one:
+        for a, b in zip(one[name], eight[name]):
+            assert a.shape == b.shape and (a - b).abs().max() <= BOUNDS["point_m"], name
+    R_cw, t_cw, X, obs, fp, fl = dryrun.make_problem(8, 512, 64, 1, CPU)
+    assert (one["gba_pcg"][1] - t_cw).abs().max() < 1e-3  # noise-free: the solve stays put
+
+
+@pytest.mark.parametrize("motion", ["spin", "orbit"])
+def test_make_trajectory_matches_reference(motion):
+    Rj, tj = jsyn.make_trajectory(60, motion)
+    Rt, tt = tsyn.make_trajectory(60, motion)
+    assert Rt.dtype == np.float32 and tt.dtype == np.float32
+    np.testing.assert_array_equal(tt, tj)
+    np.testing.assert_allclose(Rt, Rj, rtol=0, atol=3e-7)
+    assert np.ptp(tt, axis=0).max() > 0.05  # it moves
+
+
+def test_extract_orb_matches_reference():
+    rng = np.random.RandomState(7)
+    img = (60.0 + 120.0 * (((np.mgrid[0:240, 0:376][0] // 13) + (np.mgrid[0:240, 0:376][1] // 17)) % 2)
+           + 30.0 * rng.rand(240, 376)).astype(np.float32)
+    j = jorb.extract_orb(jnp.asarray(img), n_features=1200, cell=24)
+    t = torb.extract_orb(torch.from_numpy(img), n_features=1200, cell=24)
+    assert int(t.valid.sum()) > 300
+    for name in ("level", "valid", "desc"):
+        np.testing.assert_array_equal(getattr(t, name).numpy(), np.asarray(getattr(j, name)), err_msg=name)
+    v = np.asarray(j.valid)
+    np.testing.assert_allclose(t.xy.numpy()[v], np.asarray(j.xy)[v], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(t.response.numpy()[v], np.asarray(j.response)[v], rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(t.angle.numpy()[v], np.asarray(j.angle)[v], rtol=0, atol=1e-3)

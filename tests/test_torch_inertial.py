@@ -34,6 +34,7 @@ state: the inertial arrays exactly.
 """
 
 import concurrent.futures
+import copy
 import os
 import tempfile
 
@@ -64,6 +65,7 @@ from orb_slam3_detailed_comments_kor_tpu_torch.optim import ba as tba  # noqa: E
 from orb_slam3_detailed_comments_kor_tpu_torch.optim import factors as tfac  # noqa: E402
 from orb_slam3_detailed_comments_kor_tpu_torch.optim import vi_ba as tvb  # noqa: E402
 from orb_slam3_detailed_comments_kor_tpu_torch.optim import vio as tvio  # noqa: E402
+from orb_slam3_detailed_comments_kor_tpu_torch.parallel import dist_vi_ba as tdvb  # noqa: E402
 from orb_slam3_detailed_comments_kor_tpu_torch.slam import inertial as tin  # noqa: E402
 from orb_slam3_detailed_comments_kor_tpu_torch.slam import loop_closing as tlc  # noqa: E402
 from orb_slam3_detailed_comments_kor_tpu_torch.slam import map_merging as tmm  # noqa: E402
@@ -498,6 +500,81 @@ def test_full_inertial_ba(si):
     close(out[0]["kf_R_cw"], got[0].kf_R_cw, 1e-4)
     close(out[1]["vel"], got[1].vel, 1e-3)
     close(out[2], got[2], 0.0, 1e-3)
+
+
+def _without_far_landmarks(ms, far_m=10.0):
+    """``ms`` with the landmarks farther than ``far_m`` from every valid
+    keyframe centre dropped as ``tracking.cull_landmarks`` drops a landmark
+    (invalid, its observation rows cleared)."""
+    C = -torch.einsum("kji,kj->ki", ms.kf_R_cw, ms.kf_t_cw)[ms.kf_valid]
+    far = ms.lm_valid & (torch.cdist(ms.lm_pos, C).min(dim=1).values > far_m)
+    stale = (ms.obs_lm >= 0) & far[ms.obs_lm.clamp(min=0).long()]
+    return ms._replace(lm_valid=ms.lm_valid & ~far, obs_lm=torch.where(stale, -1, ms.obs_lm))
+
+
+@pytest.mark.parametrize("shards", [1, 8])
+def test_distributed_full_inertial_ba(si, shards, monkeypatch):
+    """The sharded FullInertialBA on the reference's final state against
+    the port's ``full_inertial_ba`` (iters=2; the reference's two
+    functions call the same solver with the same walk and prior weights):
+    one shard gives its bits; eight stay within tests/test_dist_ba.py's
+    distributed-versus-single bounds (poses 2e-3 m, velocities and biases
+    2e-2, every landmark 5e-3 m).
+    The state: the fixture's map without its landmarks farther than 10 m
+    from every keyframe centre. That drops one landmark of 1,394, 20.4 m
+    out (the next lies 9.5 m out) with two stereo observations of about
+    1.2 px disparity (bf 25.3 px m), which the two iterations move 8.3 m:
+    its back-substitution turns the 1e-7 m by which eight shards' ordered
+    keyframe sums move the poses into 6.0e-3 m (2.0e-3 m on four shards;
+    two shards, whose one boundary falls between keyframes, give the
+    one-device bits). Without it the largest landmark gap is 5.3e-5 m on
+    eight shards (9.7e-5 m on four)."""
+    s, t = si[0]["system"], si[1]["system"]
+
+    def args():
+        return (_without_far_landmarks(tms.map_state_from_numpy(npy(s.ms), "cpu")), ikf_t(npy(s.ikf)),
+                T(s.gravity), t.cam_params, t.R_cb, t.t_cb, t.cfg.camera.bf)
+    ms0 = args()[0]
+    assert int(ms0.lm_valid.sum()) == int(np.asarray(s.ms.lm_valid).sum()) - 1
+    one = tin.full_inertial_ba(*args(), iters=2)
+    monkeypatch.setattr(tdvb, "_VI_GBA_MESH", [torch.device("cpu")] * shards)
+    got = tdvb.distributed_full_inertial_ba(*args(), iters=2)
+    assert got[2] is None
+    valid = ms0.lm_valid
+    fields = {"t_cw": (one[0].kf_t_cw, got[0].kf_t_cw, 2e-3), "R_cw": (one[0].kf_R_cw, got[0].kf_R_cw, 2e-3),
+              "vel": (one[1].vel, got[1].vel, 2e-2), "bg": (one[1].bg, got[1].bg, 2e-2),
+              "ba": (one[1].ba, got[1].ba, 2e-2), "points": (one[0].lm_pos[valid], got[0].lm_pos[valid], 5e-3)}
+    if shards == 1:
+        assert all(torch.equal(a, b) for a, b, _ in fields.values())
+    else:
+        for name, (a, b, tol) in fields.items():
+            assert float((a - b).abs().max()) <= tol, name
+    assert float((got[0].kf_t_cw - ms0.kf_t_cw).abs().max()) > 1e-5  # the solve moved the map
+
+
+def test_service_gba_routes_to_the_sharded_fiba(si, monkeypatch):
+    """With a mesh of more than one shard, a GBA slice of an initialized
+    inertial map with K <= 128 is the sharded whole-map FIBA (iters=2),
+    not the window sweep, and its cost None leaves the budget fixed."""
+    t = copy.copy(si[1]["system"])  # the slice rebinds the map and the counters on the copy
+    assert t.imu_initialized and t.ms.K <= 128
+    calls, real = [], tdvb.distributed_full_inertial_ba
+
+    def spy(*a, **k):
+        calls.append(k)
+        return real(*a, **k)
+
+    def sweep(*a, **k):
+        raise AssertionError("the window sweep ran")
+    monkeypatch.setattr(tdvb, "_VI_GBA_MESH", [torch.device("cpu")] * 8)
+    monkeypatch.setattr(tdvb, "distributed_full_inertial_ba", spy)
+    monkeypatch.setattr(tin, "local_vi_ba_step", sweep)
+    t._gba_chunks_left, t._gba_chunks_run, t._gba_prev_cost = 1, 0, None
+    ms0 = t.ms
+    t._service_gba()
+    assert [k["iters"] for k in calls] == [2]
+    assert t._gba_chunks_left == 0 and t._gba_chunks_run == 1 and t._gba_prev_cost is None
+    assert t.ms is not ms0
 
 
 def test_store_preintegration_exact(si):

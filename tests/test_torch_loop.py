@@ -391,6 +391,26 @@ def test_gba_chunk(loops):
     np.testing.assert_allclose(float(got_cost), float(ref_cost), rtol=1e-3)
 
 
+def test_gba_chunk_sharded(loops, monkeypatch):
+    """``global_ba`` on an 8-shard CPU mesh takes the observation-sharded
+    solver (cost None) and stays within tests/test_dist_ba.py's
+    distributed-versus-single bounds (poses 2e-3 m, points 5e-3 m) of the
+    port's one-device slice, which ``test_gba_chunk`` holds to the
+    reference's ``_global_ba_core``."""
+    ms = npy(loops[0]["end"]["ms"])
+    cfg = loops[3]
+    cam = T(np.array([cfg.camera.fx, cfg.camera.fy, cfg.camera.cx, cfg.camera.cy], np.float32))
+    one, cost = tlc.global_ba(tmap(ms), cam, cfg.camera.bf, iters=2)
+    assert cost is not None
+    monkeypatch.setattr(tlc, "_GBA_MESH", [torch.device("cpu")] * 8)
+    got, cost = tlc.global_ba(tmap(ms), cam, cfg.camera.bf, iters=2)
+    assert cost is None
+    assert (one.kf_t_cw - got.kf_t_cw).abs().max() <= 2e-3
+    valid = torch.from_numpy(ms["lm_valid"])
+    assert (one.lm_pos - got.lm_pos)[valid].abs().max() <= 5e-3
+    assert (got.kf_t_cw - torch.from_numpy(ms["kf_t_cw"])).abs().max() > 1e-4  # the slice moved the map
+
+
 def test_relocalize_in_far_from_last_pose(loops):
     j, end = loops[0]["system"], loops[0]["end"]
     cfg, frames, imgs = loops[3], loops[5], loops[6]

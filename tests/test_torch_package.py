@@ -42,6 +42,8 @@ SLICE_MODULES = [
     # the recorded-sequence and live-sensor entry points and the viewer
     "utils.verbose", "io.native_host", "io.datasets", "io.online", "examples.run_dataset",
     "examples.run_synthetic", "viz.viewer",
+    # multi-device bundle adjustment
+    "parallel.dist_ba", "parallel.dist_vi_ba", "parallel.dryrun",
 ]
 # the functions of the RGB-D and fisheye paths, in the modules they extend
 SLICE_FUNCTIONS = [
@@ -54,6 +56,8 @@ SLICE_FUNCTIONS = [
     ("models.vocabulary", "train_vocabulary"), ("models.vocabulary", "transform"),
     ("models.vocabulary", "compute_idf"), ("io.synthetic", "corridor_scene"), ("io.synthetic", "wall_scene"),
     ("io.synthetic", "CorridorTrajectory"), ("utils.timing", "torch_profile"),
+    # the one-image extractor of the host tools
+    ("ops.orb", "extract_orb"),
 ]
 
 
@@ -128,7 +132,8 @@ def test_config_fields_equal(name):
      ("models.vocabulary", "load_default"), ("utils.prng", "key_from_bytes"),
      ("slam.inertial", "empty_inertial"), ("ops.imu", "identity_preintegrated"),
      ("io.synthetic", "AnalyticTrajectory"), ("examples.run_dataset", "main"), ("examples.run_synthetic", "main"),
-     ("models.vocabulary", "train_vocabulary"), ("io.synthetic", "corridor_scene"), ("io.synthetic", "wall_scene")],
+     ("models.vocabulary", "train_vocabulary"), ("io.synthetic", "corridor_scene"), ("io.synthetic", "wall_scene"),
+     ("parallel.dist_ba", "make_mesh")],
 )
 def test_entry_points_default_to_cuda(module, name):
     """Entry points that make tensors from nothing put them on the card
@@ -156,7 +161,9 @@ def test_entry_points_default_to_cuda(module, name):
      ("slam.frontend", "process_rgbd"), ("slam.frontend", "process_stereo_fisheye"),
      ("slam.tracking", "full_rgbd_step"), ("slam.tracking", "full_fisheye_step"),
      ("slam.system", "SlamSystem.track_rgbd"), ("slam.loop_closing", "LoopCloser.add_keyframe"),
-     ("models.vocabulary", "transform"), ("models.vocabulary", "compute_idf")],
+     ("models.vocabulary", "transform"), ("models.vocabulary", "compute_idf"),
+     ("slam.loop_closing", "global_ba"), ("parallel.dist_vi_ba", "distributed_full_inertial_ba"),
+     ("parallel.dist_ba", "distributed_bundle_adjust_cg"), ("parallel.dist_vi_ba", "distributed_vi_ba_cg")],
 )
 def test_entry_points_follow_their_inputs_device(module, name):
     """Entry points that work on a system's or a map's tensors take no

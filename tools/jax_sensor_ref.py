@@ -2,9 +2,9 @@
 
 Run from the root of a checkout, on a CPU:
 
-    JAX_PLATFORMS=cpu python tools/jax_sensor_ref.py --pass rgbd --frames 90     # phase 11, REF_RGBD
-    JAX_PLATFORMS=cpu python tools/jax_sensor_ref.py --pass fisheye --frames 60  # phase 12, REF_FISHEYE
-    JAX_PLATFORMS=cpu python tools/jax_sensor_ref.py --pass fsi       # phase 13, REF_FSI
+    JAX_PLATFORMS=cpu python tools/jax_sensor_ref.py --pass rgbd --frames 60     # phase 11, REF_RGBD
+    JAX_PLATFORMS=cpu python tools/jax_sensor_ref.py --pass fisheye --frames 40  # phase 12, REF_FISHEYE
+    JAX_PLATFORMS=cpu python tools/jax_sensor_ref.py --pass fsi --frames 80  # phase 13, REF_FSI
     JAX_PLATFORMS=cpu python tools/jax_sensor_ref.py --pass si --frames 90     # phase 8, REF_SI
     JAX_PLATFORMS=cpu python tools/jax_sensor_ref.py --pass mono --frames 70   # phase 9, REF_MONO
     JAX_PLATFORMS=cpu python tools/jax_sensor_ref.py --pass mi --frames 60     # phase 10, REF_MI
@@ -57,7 +57,9 @@ loops closed and each correction's mode, the frames decided lost, the
 lifecycle counters, the landmarks, ``eval.ate.ate_rmse`` over all frames
 without scale alignment, the valid right-camera rows of the newest
 keyframe (fisheye passes), the IMU-initialization frame, keyframe count
-and gravity and the final gravity (``fsi``), and the run's seconds.
+and gravity, the final gravity and, when the pass ends before VIBA1, the
+gravity of that re-initialization run once on the final map as the
+system runs it (``viba1_gravity``, ``fsi``), and the run's seconds.
 chip_smoke.py records these as ``REF_RGBD``, ``REF_FISHEYE`` and
 ``REF_FSI``. The runs use one JAX device with the CPU's asynchronous
 dispatch off and every deferred read counted as ready once computed
@@ -190,6 +192,12 @@ def run(kind, frames=N_FRAMES):
     if kind == "fsi":
         out.update(imu_init=imu_init, imu_initialized=bool(slam.imu_initialized),
                    gravity_end=np.asarray(slam.gravity).tolist())
+        if slam.imu_initialized and slam.n_kf < slam._init_kf_count + 6:
+            # VIBA1 (the system's re-initialization at the init's keyframes
+            # + 6), run once on the final map with the system's arguments
+            _, g1, _ = inertial.initialize_imu(slam.ms, slam.ikf, slam.n_kf, slam.gravity, slam.R_cb, slam.t_cb,
+                                               estimate_scale=False)
+            out["viba1_gravity"] = np.asarray(g1).tolist()
     out["seconds"] = time.time() - t0
     return out, (times, centers, R_wc, gt[: len(centers)])
 
