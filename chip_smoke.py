@@ -226,7 +226,9 @@ Phase 14 the dataset runner: phase 8's stereo-inertial data (the first
          IMU), and a ``LoopCloser`` without a vocabulary is fed the pass's
          first four keyframes on the card and on the CPU. Prints the
          runner's wall time and frames/s with decoding included, frame wall
-         p50/p99, the IMU initialization, keyframes, loops, lost frames,
+         p50/p99, the wait for the feeder's decoded and rectified images
+         (``feed_ms`` p50/p99) beside the track call (``track_ms`` p50),
+         the IMU initialization, keyframes, loops, lost frames,
          state and ATE beside ``REF_EUROC`` (the JAX package's runner on the
          same layout), the decoder that ran, the online node's processed and
          dropped frames, the peak memory and the synchronizing calls by
@@ -234,13 +236,21 @@ Phase 14 the dataset runner: phase 8's stereo-inertial data (the first
          the reference's frame with its keyframes, the keyframes are within
          2 of its, the loops and lost frames equal its, the ATE is at most
          its plus 5 mm, the trajectory file has one row per frame, the
-         native decoder and feeder ran wherever the native library builds
-         (on a machine without libpng the runner decodes with PIL, and the
-         line says so), the node processed every frame and
+         native decoder and feeder ran, built from the port's own
+         ``native/host_ops.cpp`` with no libpng on its link line or among
+         the libraries it needs, the node processed every frame and
          dropped none and ended OK, tracked frames (fed host arrays) make no
          synchronizing call, the trained vocabularies' centroids are equal
          and their database rows within 1e-5, and the three kernels equal
-         their plain versions at the recorded inputs.
+         their plain versions at the recorded inputs. On frame
+         DS_PROFILE_FRAME's inputs it also holds, exactly: the CUDA
+         ``fast_nms_stack`` against the plain ``fast_with_fallback_stack``
+         on the frame's [16, 480, 768] stack; ``gather_patches`` on the
+         ragged [2210, 752] atlas of ``build_pyramid``'s levels (the SAD
+         strips of ``compute_stereo_matches``' list branch, timed) against
+         its plain version; and ``transform_exact``'s word ids for the
+         frame's 1,200 left descriptors, card against CPU, on the committed
+         vocabulary.
 
 Phases 6 and 8 also hold the observation-sharded solvers
          (``parallel/``) on their pass's map: ``distributed_bundle_adjust_cg``
@@ -2955,6 +2965,12 @@ def write_png_gray(path, img, bits=8):
                 + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
 
 
+def needed_libraries(path):
+    """The shared libraries an ELF file names as NEEDED (``readelf -d``)."""
+    out = subprocess.run(["readelf", "-d", path], capture_output=True, text=True, check=True).stdout
+    return [line.split("[", 1)[1].split("]", 1)[0] for line in out.splitlines() if "(NEEDED)" in line]
+
+
 def _yaml_matrix(name, m):
     m = np.asarray(m, np.float64)
     data = ", ".join(repr(float(x)) for x in m.reshape(-1))
@@ -3091,6 +3107,58 @@ REF_EUROC = dict(ate_m=0.0034981964132012526, state=1, n_kf=8, keyframe_frames=[
 EUROC_KF_TOL = 2
 
 
+def frame_rest_checks(dev, slam, images, fast_call, counters, per_kernel):
+    """Phase 14's holds on one runner frame (``images``: its decoded and
+    rectified pair; ``fast_call``: its recorded ``fast_nms`` arguments):
+    the CUDA ``fast_nms_stack`` against the plain ``fast_with_fallback_stack``
+    on the frame's stack; ``compute_stereo_matches`` over ragged
+    ``build_pyramid`` levels, its ``gather_patches`` call on the [ΣH_l, W0]
+    atlas held (and timed) against the plain version; ``transform_exact``
+    on the frame's left descriptors, card against CPU, on the committed
+    vocabulary. Launches of these checks come after the pass's counts were
+    read. Returns the record."""
+    from orb_slam3_detailed_comments_kor_tpu_torch.models import vocabulary as voc
+    from orb_slam3_detailed_comments_kor_tpu_torch.ops import cuda_fast, fast as fast_ops, orb as orb_ops
+    from orb_slam3_detailed_comments_kor_tpu_torch.ops import pyramid, stereo
+    from orb_slam3_detailed_comments_kor_tpu_torch.slam import frontend
+
+    cfg = slam.cfg
+    flat, hs, ws, th_hi, th_lo = fast_call
+    hs, ws = tuple(int(v) for v in hs), tuple(int(v) for v in ws)
+    bn, hp, wp = flat.shape
+    inb = fast_ops.level_interior(hs, ws, 3, hp, wp, flat.device).expand(bn // len(hs), len(hs), hp, wp)
+    inb = inb.reshape(bn, hp, wp)
+    cell = cfg.orb.cell_size
+    before = {k: fn.launches for k, fn in counters.items()}
+    checks = [("fast_nms", f"runner frame {DS_PROFILE_FRAME}: fast_nms_stack {'x'.join(map(str, flat.shape))} "
+               f"against fast_with_fallback_stack", lambda *a: cuda_fast.fast_nms_stack(
+                   a[0], a[1], a[2], len(hs), a[3], a[4], cell),
+               lambda *a: fast_ops.fast_with_fallback_stack(a[0], a[3], a[4], cell, inb),
+               (flat, hs, ws, th_hi, th_lo), None, None)]
+    il, ir = (torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in images)
+    o = cfg.orb
+    feats = orb_ops.extract_orb_batch(torch.stack([il, ir]), n_features=o.n_features, n_levels=o.n_levels,
+                                      scale=o.scale_factor, ini_th=o.ini_th_fast, min_th=o.min_th_fast, cell=cell)
+    fl, fr = frontend._view(feats, 0), frontend._view(feats, 1)
+    pyr_l, pyr_r = (pyramid.build_pyramid(x, o.n_levels, o.scale_factor) for x in (il, ir))
+    calls = {"fast_nms": [], "gather_patches": [], "masked_best2": []}
+    with recording_kernel_calls(calls):
+        sd = stereo.compute_stereo_matches(fl, fr, pyr_l, pyr_r, cfg.camera.bf, o.scale_factor)
+        torch.cuda.synchronize()
+    gathers = {"fast_nms": [], "gather_patches": calls["gather_patches"], "masked_best2": []}
+    checks += main_path_checks(gathers, f"runner frame {DS_PROFILE_FRAME}, ragged atlas: ")
+    run_checks(checks, counters, per_kernel)
+    words_card = voc.transform_exact(voc.load_default(dev), fl.desc, fl.valid)
+    words_cpu = voc.transform_exact(voc.load_default("cpu"), fl.desc.cpu(), fl.valid.cpu())
+    rec = dict(fast_stack_exact=True, atlas=list(calls["gather_patches"][0][0].shape),
+               ragged_gather_calls=len(calls["gather_patches"]), ragged_stereo_valid=int(sd.valid.sum()),
+               descriptors=int(fl.valid.sum()), transform_exact_equal=torch.equal(words_card.cpu(), words_cpu),
+               distinct_words=int(torch.unique(words_cpu[words_cpu >= 0]).numel()),
+               check_launches={k: fn.launches - before[k] for k, fn in counters.items()})
+    log(f"phase 14: frame {DS_PROFILE_FRAME} checks: {rec}")
+    return rec
+
+
 def phase14(dev, counters, per_kernel, smi):
     """Phase 14: the dataset runner on a recorded sequence (see the module
     docstring). Prints its JSON line, raises on a failed check, holds the
@@ -3114,10 +3182,14 @@ def phase14(dev, counters, per_kernel, smi):
     gt_R = np.stack([traj.pose(i / FPS)[0].cpu().numpy() for i in range(DS_FRAMES)])
     try:
         native_host.load()
-        native = dict(built=True, library=os.path.basename(native_host.library_path()))
-    except Exception as e:  # reported, and failed below unless libpng is what is missing
-        err = repr(e) + repr(e.__cause__)
-        native = dict(built=False, error=err[-400:], libpng_missing="png.h" in err or "libpng" in err)
+        so = native_host.library_path()
+        native = dict(built=True, library=os.path.basename(so), libs=list(native_host.LIBS),
+                      source=os.path.relpath(native_host.SOURCE, os.path.dirname(os.path.abspath(__file__))),
+                      needed=needed_libraries(so))
+    except Exception as e:  # reported, and failed below
+        native = dict(built=False, error=(repr(e) + repr(e.__cause__))[-400:])
+    own_source = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(native_host.__file__))), "native",
+                              "host_ops.cpp")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_euroc_")
     try:
         t0 = time.time()
@@ -3144,6 +3216,7 @@ def phase14(dev, counters, per_kernel, smi):
             if i == DS_PROFILE_FRAME:
                 if self.state != 1 or not self.imu_initialized:
                     raise AssertionError(f"phase 14: frame {i} is not tracked with the IMU")
+                rec["images"] = (a[0].copy(), a[1].copy())  # the feeder's decoded, rectified pair
                 with recording_kernel_calls(kcalls):
                     watch(i, self, call)
             else:
@@ -3183,6 +3256,9 @@ def phase14(dev, counters, per_kernel, smi):
         t_post = time.time()
         run_checks(main_path_checks(kcalls, f"dataset runner frame {DS_PROFILE_FRAME}: "), counters, per_kernel)
         t_checks = time.time() - t_post
+        t_post = time.time()
+        rest = frame_rest_checks(dev, res["slam"], rec["images"], kcalls["fast_nms"][0], counters, per_kernel)
+        rest["seconds"] = time.time() - t_post
 
         # the online node: the first DS_ONLINE_FRAMES frames, decoded and
         # rectified, and their IMU samples published by three producer threads
@@ -3241,6 +3317,7 @@ def phase14(dev, counters, per_kernel, smi):
 
     times, centers, _ = slam.trajectory_arrays()
     lat_runner = np.array(res["frame_ms"][5:])
+    feed, track_ms = np.array(res["feed_ms"][5:]), np.array(res["track_ms"][5:])
     record = dict(
         frames=len(slam.trajectory), trajectory_rows=int(rows.shape[0]), state=slam.state, keyframes=slam.n_kf,
         keyframe_frames=rec["kf_at"], imu_init=rec["init"], loops_closed=slam.loop_closer.n_loops_closed,
@@ -3248,16 +3325,19 @@ def phase14(dev, counters, per_kernel, smi):
         stamps_ns=[stamps[0], stamps[-1]], decoder=res["decoder"], native_host=native,
         runner_wall_s=res["wall_s"], runner_frames_per_s=res["frames_per_s"],
         frame_p50_ms=float(np.percentile(lat_runner, 50)), frame_p99_ms=float(np.percentile(lat_runner, 99)),
-        frame_max_ms=float(lat_runner.max()),
+        frame_max_ms=float(lat_runner.max()), feed_p50_ms=float(np.percentile(feed, 50)),
+        feed_p99_ms=float(np.percentile(feed, 99)), feed_max_ms=float(feed.max()),
+        track_p50_ms=float(np.percentile(track_ms, 50)), track_p99_ms=float(np.percentile(track_ms, 99)),
         track_call_p50_ms=float(np.percentile(lat[5:], 50)), peak_mib=peak, launches=launches,
         syncs_by_kind=sync_summary(records),
         sync_calls=sorted({c for f in records if f["kind"] in ("tracking", "keyframe") for c in f["sync_calls"]})[:8],
         online=node_rec, online_vocabulary=vocab_rec, gravity_end=slam.gravity.cpu().tolist(),
-        stats=slam.stats, write_s=write_s, kernel_checks_s=t_checks)
+        stats=slam.stats, write_s=write_s, kernel_checks_s=t_checks, frame_checks=rest)
     log(f"phase 14 ({smi}): " + json.dumps(record))
     log(f"phase 14: the runner ran {DS_FRAMES} frames in {res['wall_s']:.2f} s ({res['frames_per_s']:.2f} frames/s, "
         f"decode and rectify included), frame wall p50 {record['frame_p50_ms']:.2f} ms p99 "
-        f"{record['frame_p99_ms']:.2f} ms; ATE {res['ate_m'] * 1e3:.3f} mm (JAX reference "
+        f"{record['frame_p99_ms']:.2f} ms: the feeder wait p50 {record['feed_p50_ms']:.3f} ms p99 "
+        f"{record['feed_p99_ms']:.3f} ms, the track call p50 {record['track_p50_ms']:.2f} ms; ATE {res['ate_m'] * 1e3:.3f} mm (JAX reference "
         f"{ref['ate_m'] * 1e3:.3f} mm); {slam.n_kf} keyframes (reference {ref['n_kf']}); IMU init {rec['init']} "
         f"(reference {ref['imu_init']}); decoder {res['decoder']}; online node {node_rec}; vocabulary {vocab_rec}; "
         f"peak {peak:.1f} MiB; phase 14 took {time.time() - t_ph:.1f} s")
@@ -3274,12 +3354,15 @@ def phase14(dev, counters, per_kernel, smi):
                    f"reference's {ref['loops_closed']} and {ref['lost_frames']}")
     if not res["ate_m"] <= ref["ate_m"] + ATE_MARGIN:
         bad.append(f"ATE {res['ate_m']} m")
-    # the native decoder must run wherever it builds; where the machine has
-    # no libpng (ROADMAP, item 15: the H100 machine) the runner decodes with
-    # PIL and rectifies in numpy, which the line above reports
-    if res["decoder"] != ("native" if native["built"] else "python") or not (
-            native["built"] or native["libpng_missing"]):
-        bad.append(f"the native decoder did not run: {native}, decoder {res['decoder']}")
+    # the native decoder and feeder, from the port's own source, which needs
+    # zlib and no libpng (the card's machine has none)
+    if res["decoder"] != "native" or not native["built"] or native_host.SOURCE != own_source \
+            or "-lpng" in native["libs"] or any("png" in n for n in native["needed"]):
+        bad.append(f"the native decoder did not run from the port's zlib-only library: {native}, "
+                   f"decoder {res['decoder']}")
+    if not (rest["fast_stack_exact"] and rest["transform_exact_equal"] and rest["atlas"] == [2210, 752]
+            and rest["ragged_stereo_valid"] >= 300):
+        bad.append(f"frame {DS_PROFILE_FRAME}'s checks: {rest}")
     if (node_rec["processed"], node_rec["dropped_left"], node_rec["dropped_right"]) != (DS_ONLINE_FRAMES, 0, 0) \
             or node_rec["state"] != slam_mod.TrackingState.OK:
         bad.append(f"the online node: {node_rec}")

@@ -17,7 +17,9 @@ Modes: mono | stereo | rgbd | mono_inertial | stereo_inertial
 Datasets: euroc (also TUM-VI's euroc-style layout) | tum_rgbd | kitti
 
 The system runs on the card; a caller such as a test names another device
-with ``main(argv, device="cpu")``. ``main`` returns a summary of the run.
+with ``main(argv, device="cpu")``. ``main`` returns a summary of the run,
+with each frame's wall time split into the wait for its decoded (and
+rectified) images, ``feed_ms``, and the track call, ``track_ms``.
 """
 
 from __future__ import annotations
@@ -102,7 +104,7 @@ def main(argv=None, device="cuda"):
     from orb_slam3_detailed_comments_kor_tpu_torch.slam.system import SlamSystem
 
     slam = SlamSystem(cfg, device=device)
-    frame_ms = []
+    frame_ms, feed_ms, track_ms = [], [], []
     decoder = "python"
     t_start = time.perf_counter()
 
@@ -118,8 +120,12 @@ def main(argv=None, device="cuda"):
             t0 = time.perf_counter()
             img = ds.load_gray(fr.left)
             depth = ds.load_depth_tum(fr.depth, args.depth_factor)
+            t1 = time.perf_counter()
             slam.track_rgbd(img, depth, fr.t)
-            frame_ms.append((time.perf_counter() - t0) * 1e3)
+            t2 = time.perf_counter()
+            feed_ms.append((t1 - t0) * 1e3)
+            track_ms.append((t2 - t1) * 1e3)
+            frame_ms.append((t2 - t0) * 1e3)
     else:
         feeder = build_feeder(seq, settings, args.mode)
         decoder = "native" if feeder.native else "python"
@@ -127,6 +133,7 @@ def main(argv=None, device="cuda"):
         t_prev = None
         t0 = time.perf_counter()
         for i, (img_l, img_r) in enumerate(feeder):
+            t1 = time.perf_counter()  # t1 - t0: the wait in next(feeder)
             fr = seq.frames[i]
             if inertial and seq.imu is not None:
                 t_lo = t_prev if t_prev is not None else fr.t - 1.0
@@ -145,9 +152,11 @@ def main(argv=None, device="cuda"):
             else:
                 slam.track_stereo_inertial(img_l, img_r, fr.t, samples)
             t_prev = fr.t
-            t1 = time.perf_counter()
-            frame_ms.append((t1 - t0) * 1e3)  # decode wait included
-            t0 = t1
+            t2 = time.perf_counter()
+            feed_ms.append((t1 - t0) * 1e3)
+            track_ms.append((t2 - t1) * 1e3)
+            frame_ms.append((t2 - t0) * 1e3)  # decode wait included
+            t0 = t2
     slam.flush_decisions()
     wall = time.perf_counter() - t_start
     fps = len(seq) / wall if wall > 0 else 0.0
@@ -174,7 +183,7 @@ def main(argv=None, device="cuda"):
         )
         print(f"[run_dataset] ATE RMSE: {err:.4f} m", flush=True)
     return dict(slam=slam, frames=len(seq), wall_s=wall, frames_per_s=fps, frame_ms=frame_ms,
-                decoder=decoder, ate_m=err, out=args.out, format=fmt)
+                feed_ms=feed_ms, track_ms=track_ms, decoder=decoder, ate_m=err, out=args.out, format=fmt)
 
 
 if __name__ == "__main__":

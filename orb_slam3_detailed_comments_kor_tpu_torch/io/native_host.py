@@ -1,17 +1,23 @@
-"""ctypes bindings for the native host runtime (``native/host_ops.cpp``).
+"""ctypes bindings for the native host runtime (the package's
+``native/host_ops.cpp``).
 
 The port's own copy of ``orb_slam3_detailed_comments_kor_tpu/io/
 native_host.py``. The native layer plays the role of the reference's C++
 driver code (``Examples/Stereo-Inertial/stereo_inertial_euroc.cc``): image
 decode, rectification (``cv::remap``) and a threaded prefetch feeder.
 
-The source is the repository's ``native/host_ops.cpp``, read and never
-written: ``load`` compiles it with ``g++`` (the flags of ``native/Makefile``,
-linked with libpng, zlib and pthreads) into this package's ``_build/``,
-under a file name that carries a hash of the source and the flags, so an
-edited source is rebuilt and an unchanged one is loaded. Nothing is built
-at import time. ``load`` raises when the build fails; the loaders in
-``datasets.py`` then fall back to numpy and PIL, as the reference's do.
+The source is this package's ``native/host_ops.cpp``: the C interface,
+PGM decoder, remap and feeder of the repository's ``native/host_ops.cpp``,
+with a PNG decoder of its own on zlib's ``inflate`` in place of libpng
+(bit-equal to the libpng build's output; gray+alpha takes the gray channel,
+as PIL does). ``load`` compiles it with ``g++`` (the flags of
+``native/Makefile``, linked with zlib and pthreads only) into this
+package's ``_build/``, under a file name that carries a hash of the source
+and the flags, so an edited source is rebuilt and an unchanged one is
+loaded. Nothing is built at import time. ``load`` raises when the build
+fails; the loaders in ``datasets.py`` then fall back to numpy and PIL, as
+the reference's do, and so does ``load_gray`` for a PNG the decoder
+refuses (interlaced or damaged).
 """
 
 from __future__ import annotations
@@ -27,10 +33,10 @@ from typing import List, Optional
 import numpy as np
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(os.path.dirname(_PKG), "native", "host_ops.cpp")
+SOURCE = os.path.join(_PKG, "native", "host_ops.cpp")
 BUILD_DIR = os.path.join(_PKG, "_build")
 CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall")
-LIBS = ("-lpng", "-lz", "-lpthread")
+LIBS = ("-lz", "-lpthread")
 
 _lock = threading.Lock()
 _lib = None

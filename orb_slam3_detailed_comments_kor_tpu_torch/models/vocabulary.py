@@ -1,15 +1,12 @@
 """Binary-descriptor vocabulary: the production sparse BoW scheme.
 
-Port of ``Vocabulary``, ``load_default``, ``_level_offset``,
-``transform_exact_topk``, ``soft_assign_weights``,
-``sparse_bow_soft_from_desc``, ``sparse_l1_score``, the scheme constants
-and the training (``_kmedians_binary``, ``train_vocabulary``,
-``transform``, ``compute_idf``) of
-``orb_slam3_detailed_comments_kor_tpu/models/vocabulary.py`` (the DBoW2
-replacement). A keyframe's BoW row is its descriptors' exact
-top-``SOFT_K`` nearest leaf words with exp(-d/σ) soft weights, idf²
-term weights, L1 normalization and top-``TOPW`` truncation; two rows score
-by the L1 similarity Σ min(a_w, b_w).
+Port of ``orb_slam3_detailed_comments_kor_tpu/models/vocabulary.py`` (the
+DBoW2 replacement), every function of it. A keyframe's BoW row is its
+descriptors' exact top-``SOFT_K`` nearest leaf words with exp(-d/σ) soft
+weights, idf² term weights, L1 normalization and top-``TOPW`` truncation;
+two rows score by the L1 similarity Σ min(a_w, b_w). The dense DBoW2 API
+(``transform_exact``, ``bow_vector``, ``bow_vector_soft``, ``l1_score``,
+``sparse_bow``, ``score_against_database``) is ported beside it.
 
 Training runs on the host in numpy with the reference's
 ``np.random.RandomState`` draws in the reference's order, so the centroids
@@ -177,6 +174,35 @@ def transform(vocab: Vocabulary, desc_bits: torch.Tensor, valid: torch.Tensor) -
     return torch.where(valid, node, -1).to(torch.int32)
 
 
+def transform_exact(
+    vocab: Vocabulary, desc_bits: torch.Tensor, valid: torch.Tensor,
+    chunk: int = 32768,
+) -> torch.Tensor:
+    """Descriptors -> word ids by the exact nearest leaf centroid: [N,256]
+    {0,1} -> [N] int32, -1 where invalid.
+
+    The [N, chunk] distance blocks are f32 GEMMs of 0/1 vectors, exact
+    since every sum is at most 256 (TF32 is off); ties take the lowest
+    word (F4): the first column within a block, the earlier block across
+    blocks.
+    """
+    n = desc_bits.shape[0]
+    d = desc_bits.to(torch.float32)
+    d_sum = torch.sum(d, dim=1, keepdim=True)
+    off = _level_offset(vocab.k, vocab.depth - 1)
+    W = vocab.n_words
+    best_d = torch.full((n,), float("inf"), device=d.device)
+    best_i = torch.zeros((n,), dtype=torch.int64, device=d.device)
+    for c0 in range(0, W, chunk):
+        cents = vocab.centroids[off + c0: off + min(c0 + chunk, W)]
+        dist = d_sum + torch.sum(cents, dim=1)[None, :] - 2.0 * (d @ cents.T)
+        dm, a = torch.min(dist, dim=1)
+        upd = dm < best_d
+        best_d = torch.where(upd, dm, best_d)
+        best_i = torch.where(upd, c0 + a, best_i)
+    return torch.where(valid, best_i, -1).to(torch.int32)
+
+
 def _k_argmin(dist: torch.Tensor, kk: int):
     """The ``kk`` smallest entries of each row and their columns, in
     order, the lower column first on ties (iterated argmin)."""
@@ -230,6 +256,48 @@ def soft_assign_weights(dist: torch.Tensor, sigma: float = 16.0):
     return w / torch.clamp(torch.sum(w, dim=1, keepdim=True), min=1e-9)
 
 
+def _word_counts(W: int, ids: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """[W] f32 sums of ``weights`` per word id; ids past the vocabulary are
+    dropped (the reference's ``mode="drop"``) and negative ones count as
+    word 0 (its ``clip``), so callers zero their weights. Duplicates add
+    in input order on every device (``index_put_`` sorts, it does not use
+    atomics), as the reference's CPU scatter does."""
+    ids = torch.clamp(ids.reshape(-1), min=0).to(torch.int64)
+    weights = weights.reshape(-1).to(torch.float32)
+    keep = ids < W
+    counts = torch.zeros((W,), dtype=torch.float32, device=weights.device)
+    counts.index_put_((torch.where(keep, ids, 0),), torch.where(keep, weights, 0.0), accumulate=True)
+    return counts
+
+
+def bow_vector_soft(
+    vocab: Vocabulary, ids: torch.Tensor, wts: torch.Tensor,
+    valid: torch.Tensor,
+) -> torch.Tensor:
+    """Soft word assignments (ids [N,kk], weights [N,kk]) -> L1-normalized
+    tf-idf dense vector [n_words]."""
+    contrib = wts * valid[:, None].to(torch.float32)
+    v = _word_counts(vocab.n_words, ids, torch.where(ids >= 0, contrib, 0.0)) * vocab.idf
+    return v / torch.clamp(torch.sum(v), min=1e-9)
+
+
+def bow_vector(vocab: Vocabulary, words: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Word ids [N] -> L1-normalized tf-idf dense vector [n_words]
+    (BowVector analog)."""
+    v = _word_counts(vocab.n_words, words, valid) * vocab.idf
+    return v / torch.clamp(torch.sum(v), min=1e-9)
+
+
+def l1_score(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """DBoW2 L1 similarity: s = 1 − ½·Σ|a−b| ∈ [0,1] (ScoringObject L1)."""
+    return 1.0 - 0.5 * torch.sum(torch.abs(a - b), dim=-1)
+
+
+def score_against_database(query_bow: torch.Tensor, db_bows: torch.Tensor) -> torch.Tensor:
+    """Score one query against all database rows: [W] vs [K,W] -> [K]."""
+    return l1_score(query_bow[None, :], db_bows)
+
+
 def top_k_stable(v: torch.Tensor, k: int):
     """(values, indices) of the k largest entries of a vector, the lower
     index first among equal values: the reference's ``approx_max_k`` as
@@ -253,23 +321,30 @@ def sparse_bow_soft_from_desc(
     """
     ids, dist = transform_exact_topk(vocab, desc_bits, valid, kk=SOFT_K)
     w = soft_assign_weights(dist, sigma=SOFT_SIGMA)
-    W = vocab.n_words
     contrib = w * valid[:, None].to(torch.float32)
-    counts = torch.zeros((W,), dtype=torch.float32, device=w.device)
-    counts.index_put_(
-        (torch.clamp(ids, min=0).reshape(-1).to(torch.int64),),
-        torch.where(ids >= 0, contrib, 0.0).reshape(-1), accumulate=True,
-    )
-    v = counts * vocab.idf ** IDF_POW
-    v = v / torch.clamp(torch.sum(v), min=1e-9)
+    v = _word_counts(vocab.n_words, ids, torch.where(ids >= 0, contrib, 0.0)) * vocab.idf ** IDF_POW
+    return _truncate(v / torch.clamp(torch.sum(v), min=1e-9), topw)
+
+
+def _truncate(v: torch.Tensor, topw: int):
+    """The ``topw`` largest entries of a normalized BoW vector as (ids
+    int32, -1 where the weight is 0; weights), the lower id first among
+    equal weights. A vocabulary of fewer words than ``topw`` (one trained
+    online) leaves the slots past its words empty (ROADMAP F30)."""
     wts, out_ids = top_k_stable(v, topw)
     out_ids = torch.where(wts > 0, out_ids, -1)
-    if W < topw:
-        # a vocabulary of fewer words than a row's slots (one trained
-        # online): the slots past its words stay empty (ROADMAP F30)
-        wts = torch.cat([wts, wts.new_zeros(topw - W)])
-        out_ids = torch.cat([out_ids, out_ids.new_full((topw - W,), -1)])
+    if v.shape[0] < topw:
+        wts = torch.cat([wts, wts.new_zeros(topw - v.shape[0])])
+        out_ids = torch.cat([out_ids, out_ids.new_full((topw - v.shape[0],), -1)])
     return out_ids.to(torch.int32), wts
+
+
+def sparse_bow(vocab: Vocabulary, words: torch.Tensor, valid: torch.Tensor, topw: int = TOPW):
+    """Word ids -> sparse BoW: (ids [topw] int32, weights [topw] f32), the
+    L1-normalized tf-idf entries (normalized before the truncation), ids
+    -1 past the document's distinct words."""
+    v = _word_counts(vocab.n_words, words, valid) * vocab.idf
+    return _truncate(v / torch.clamp(torch.sum(v), min=1e-9), topw)
 
 
 def sparse_l1_score(q_ids, q_wts, db_ids, db_wts):

@@ -1,15 +1,18 @@
 """FAST-9/16 corner detection as dense tensor ops — the plain version of
 the ``fast_nms`` kernel (``cuda_fast.py``).
 
-Port of ``CIRCLE_OFFSETS``, ``fast_scores_two``, ``_run9_bits``, ``nms3x3``
-and ``fast_with_fallback_stack`` from
-``orb_slam3_detailed_comments_kor_tpu/ops/fast.py``: the 16 circle
-neighbours are rolled views, the >=9-contiguous arc test is a shift-AND on
-an int32 bitfield, the score is the sum of margins beyond the threshold of
-the winning polarity, and NMS is a 3x3 max comparison. The reference's
-``fast_with_fallback_stack`` is split in two here: ``fast_nms_maps``
-(what the kernel computes) and ``cell_fallback`` (what stays around it);
-``cuda_fast.fast_nms_stack`` composes them.
+Port of ``orb_slam3_detailed_comments_kor_tpu/ops/fast.py``, every
+function of it: the 16 circle neighbours are rolled views, the
+>=9-contiguous arc test is a shift-AND on an int32 bitfield (or, in
+``_has_contiguous_run``, on a 16-wide boolean axis), the score is the sum
+of margins beyond the threshold of the winning polarity, and NMS is a 3x3
+max comparison. The reference's ``fast_with_fallback_stack`` is split in
+two here: ``fast_nms_maps`` (what the kernel computes) and
+``cell_fallback`` (what stays around it). ``cuda_fast.fast_nms_stack``
+composes them around the kernel; ``fast_with_fallback_stack`` composes
+them under the reference's name and arguments, as the plain path the
+kernel is held against. ``fast_score`` and ``fast_with_fallback`` are the
+reference's single-image FAST.
 """
 
 from __future__ import annotations
@@ -31,6 +34,17 @@ def _shift(img: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
     """result[...,y,x] = img[...,y+dy, x+dx] (circular; callers mask the
     3-px border)."""
     return torch.roll(img, shifts=(-dy, -dx), dims=(-2, -1))
+
+
+def _has_contiguous_run(mask16: torch.Tensor) -> torch.Tensor:
+    """mask16 [...,16] bool -> bool, True iff a circular run of >=9 ones
+    (iterated AND of rotations: runs of 2, 4, 8, then 9)."""
+    r = mask16
+    r = r & torch.roll(r, -1, dims=-1)   # runs of 2
+    r = r & torch.roll(r, -2, dims=-1)   # 4
+    r = r & torch.roll(r, -4, dims=-1)   # 8
+    r = r & torch.roll(mask16, -8, dims=-1)  # 9
+    return torch.any(r, dim=-1)
 
 
 def _run9_bits(m: torch.Tensor) -> torch.Tensor:
@@ -68,6 +82,26 @@ def fast_scores_two(img: torch.Tensor, th_high: float, th_low: float):
     score_h = torch.where(corner_h, torch.maximum(mb_h, md_h), 0.0)
     score_l = torch.where(corner_l, torch.maximum(mb_l, md_l), 0.0)
     return score_h, score_l
+
+
+def fast_score_raw(img: torch.Tensor, threshold: float) -> torch.Tensor:
+    """Dense FAST-9 response without border masking, [...,H,W] -> [...,H,W]
+    (the 3-px border holds rolled values; the caller masks it): the
+    high-threshold map of ``fast_scores_two``, whose operations per
+    threshold are the reference's here."""
+    return fast_scores_two(img, threshold, threshold)[0]
+
+
+def fast_score(img: torch.Tensor, threshold: float) -> torch.Tensor:
+    """Dense FAST-9 corner response of one image [H,W]: 0 for non-corners
+    and within 3 px of the border, else the larger polarity's sum of
+    margins beyond the threshold."""
+    score = fast_score_raw(img, threshold)
+    h, w = img.shape
+    yy = torch.arange(h, device=img.device)[:, None]
+    xx = torch.arange(w, device=img.device)[None, :]
+    inb = (yy >= 3) & (yy < h - 3) & (xx >= 3) & (xx < w - 3)
+    return torch.where(inb, score, 0.0)
 
 
 def nms3x3(score: torch.Tensor) -> torch.Tensor:
@@ -124,3 +158,25 @@ def cell_fallback(s_hi: torch.Tensor, s_lo: torch.Tensor, cell: int):
         cell, dim=2
     )[:, :h, :w]
     return torch.where(use_hi, s_hi, s_lo)
+
+
+def fast_with_fallback_stack(flat: torch.Tensor, th_high: float, th_low: float, cell: int,
+                             inb: torch.Tensor):
+    """Batched high→low fallback over a level stack: the plain path of
+    ``cuda_fast.fast_nms_stack``.
+
+    flat [B,H,W] (padded level images); inb [B,H,W] bool masks each level's
+    true interior. Returns (score [B,H,W], raw_lo [B,H,W]): the NMS'd
+    per-cell fallback score and the pre-NMS low-threshold response.
+    """
+    s_hi, s_lo, raw_lo = fast_nms_maps(flat, th_high, th_low, inb)
+    return cell_fallback(s_hi, s_lo, cell), raw_lo
+
+
+def fast_with_fallback(img: torch.Tensor, th_high: float, th_low: float, cell: int) -> torch.Tensor:
+    """One image [H,W]: FAST at the high threshold per cell, the low one in
+    cells without a high-threshold corner (ORBextractor.cc:808-838), each
+    map NMS'd."""
+    s_hi = nms3x3(fast_score(img, th_high))
+    s_lo = nms3x3(fast_score(img, th_low))
+    return cell_fallback(s_hi[None], s_lo[None], cell)[0]

@@ -1,21 +1,26 @@
 """Hamming-space data association.
 
-Port of ``hamming_matrix``, ``masked_best2``, ``match_nn_ratio``,
+Port of ``hamming_matrix``, ``masked_best2``,
+``rotation_consistency_mask``, ``match_nn_ratio``,
 ``search_by_projection`` and ``resolve_duplicate_targets`` from
 ``orb_slam3_detailed_comments_kor_tpu/ops/matching.py``. The per-frame
 matcher goes through the ``masked_best2`` kernel (``cuda_matching``);
 ``match_nn_ratio`` stays plain torch, as it is in the reference.
-Thresholds mirror the reference: TH_LOW=50, TH_HIGH=100 of 256 bits.
+Thresholds mirror the reference: TH_LOW=50, TH_HIGH=100 of 256 bits, a
+30-bin rotation histogram with its top 3 bins kept.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import math
+
 import torch
 
 TH_LOW = 50
 TH_HIGH = 100
+HISTO_BINS = 30
 BIG = 1e9
 
 
@@ -48,6 +53,29 @@ def masked_best2(dist: torch.Tensor, mask: torch.Tensor):
     d2 = d.scatter(1, best_idx[:, None], BIG)
     second = torch.amin(d2, dim=1)
     return best_idx.to(torch.int32), best, second
+
+
+def rotation_consistency_mask(
+    angle_a: torch.Tensor, angle_b: torch.Tensor, idx: torch.Tensor,
+    valid: torch.Tensor, n_keep: int = 3,
+) -> torch.Tensor:
+    """Keep only matches whose angle difference falls in one of the
+    ``n_keep`` fullest bins of a 30-bin histogram, and in no bin below a
+    tenth of the fullest (ComputeThreeMaxima, ``ORBmatcher.h:107``).
+
+    angle_a [N] rad; angle_b [M] rad; idx [N] match into B; valid [N].
+    Returns the refined valid mask [N]. Only the counts of the top bins
+    matter, so ties among them cannot change the mask.
+    """
+    diff = angle_a - angle_b[idx.to(torch.int64)]
+    frac = torch.remainder(diff / (2 * math.pi), 1.0)
+    bins = torch.clamp((frac * HISTO_BINS).to(torch.int64), 0, HISTO_BINS - 1)
+    hist = torch.zeros((HISTO_BINS,), dtype=torch.int32, device=diff.device)
+    hist.index_put_((bins,), valid.to(torch.int32), accumulate=True)
+    top = torch.sort(hist, descending=True, stable=True).values[:n_keep]
+    thresh = torch.maximum(top[n_keep - 1], (top[0].to(torch.float32) / 10).to(torch.int32))
+    keep_bins = hist >= torch.clamp(thresh, min=1)
+    return valid & keep_bins[bins]
 
 
 def match_nn_ratio(

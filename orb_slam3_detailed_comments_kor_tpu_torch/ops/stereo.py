@@ -1,19 +1,22 @@
 """Rectified stereo matching: row-banded Hamming + SAD subpixel refine.
 
-Port of ``compute_stereo_matches`` and ``_sad_refine_atlas`` from
-``orb_slam3_detailed_comments_kor_tpu/ops/stereo.py`` (the padded-stack
-form, with or without the extractor's left patches): each left feature takes the best right
-feature within a ±2σ row band, ±1 level and [0, maxD] disparity by Hamming
-distance (the ``masked_best2`` kernel), then an 11x11 SAD slide over ±5 px
-plus one Lucas-Kanade step refines the disparity at the feature's level,
-and a median-SAD gate rejects outliers. Depth = bf / disparity; -1 where
-there is none.
+Port of ``orb_slam3_detailed_comments_kor_tpu/ops/stereo.py``, every
+function of it: each left feature takes the best right feature within a
+±2σ row band, ±1 level and [0, maxD] disparity by Hamming distance (the
+``masked_best2`` kernel), then an 11x11 SAD slide over ±5 px plus one
+Lucas-Kanade step refines the disparity at the feature's level, and a
+median-SAD gate rejects outliers. Depth = bf / disparity; -1 where there is
+none. The pyramids are either the extractor's padded level stacks, whose
+levels sit at a fixed row pitch, or per-level lists (``pyramid.
+build_pyramid``), whose ragged levels ``_stack_pyramid`` packs into one
+atlas; either way the right strips come from the ``gather_patches``
+kernel.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
+from typing import List, NamedTuple
 
 import torch
 
@@ -34,6 +37,17 @@ class StereoDepth(NamedTuple):
     valid: torch.Tensor    # [N] bool
 
 
+def _stack_pyramid(pyr: List[torch.Tensor]):
+    """Pack the levels into one [ΣH_l, W0] atlas, each level's rows padded
+    with zeros to level 0's width, and the levels' first rows (int32 [NL])."""
+    w0 = pyr[0].shape[1]
+    offs = [0]
+    for img in pyr[:-1]:
+        offs.append(offs[-1] + img.shape[0])
+    atlas = torch.cat([torch.nn.functional.pad(img, (0, w0 - img.shape[1])) for img in pyr], dim=0)
+    return atlas, torch.tensor(offs, dtype=torch.int32, device=atlas.device)
+
+
 def _sad_refine_atlas(
     atlas_l,
     atlas_r: torch.Tensor,
@@ -48,11 +62,11 @@ def _sad_refine_atlas(
 ):
     """SAD + LK subpixel for all keypoints at once; level-local coords.
 
-    With ``left_patches`` (the extractor's keypoint-centred [K,48,45]
-    patches) the left 11x11 windows are cropped from them and the right
-    strips are one ``gather_patches`` call; without, both come from the
-    atlases by advanced indexing (plain torch). Returns
-    (du [K], sad [K], xi [K]).
+    The right strips are one ``gather_patches`` call on ``atlas_r`` (their
+    corners lie inside it, so its clamp never moves them). With
+    ``left_patches`` (the extractor's keypoint-centred [K,48,45] patches)
+    the left 11x11 windows are cropped from them; without, they come from
+    ``atlas_l`` by advanced indexing. Returns (du [K], sad [K], xi [K]).
     """
     win = 2 * _W + 1
     w_l = level_w[level]
@@ -65,17 +79,15 @@ def _sad_refine_atlas(
     )
     base = row_off[level] + yi  # atlas row of the kp
 
+    strip_r = cuda_gather.gather_patches(atlas_r, base - _W, xri - _W - _L, win, win + 2 * _L)  # [K,win,win+2L]
     if left_patches is not None:
         pc = orb_ops._PC
         patch_l = left_patches[:, pc - _W:pc + _W + 1, pc - _W:pc + _W + 1]
-        strip_r = cuda_gather.gather_patches(atlas_r, base - _W, xri - _W - _L, win, win + 2 * _L)
     else:
-        dev = atlas_r.device
+        dev = atlas_l.device
         rows = (base[:, None, None] + torch.arange(-_W, _W + 1, device=dev)[None, :, None]).to(torch.int64)
         dxl = torch.arange(-_W, _W + 1, device=dev)[None, None, :]
-        dxr = torch.arange(-_W - _L, _W + _L + 1, device=dev)[None, None, :]
-        patch_l = atlas_l[rows, (xi[:, None, None] + dxl).to(torch.int64)]    # [K,win,win]
-        strip_r = atlas_r[rows, (xri[:, None, None] + dxr).to(torch.int64)]  # [K,win,win+2L]
+        patch_l = atlas_l[rows, (xi[:, None, None] + dxl).to(torch.int64)]  # [K,win,win]
     patch_l_n = patch_l - patch_l[:, _W, _W][:, None, None]
     sads = []
     for i in range(2 * _L + 1):
@@ -136,14 +148,17 @@ def compute_stereo_matches(
 ) -> StereoDepth:
     """Stereo over fixed-capacity feature sets.
 
-    pyr_l / pyr_r: the padded level stacks [NL,Hp,Wp] from
-    ``extract_orb_batch``; ``level_hw`` the true per-level shapes;
-    ``left_patches`` optionally the extractor's left-view patches.
+    pyr_l / pyr_r: either per-level lists of [H_l, W_l] images
+    (``pyramid.build_pyramid``) or the padded level stacks [NL,Hp,Wp] from
+    ``extract_orb_batch``, with ``level_hw`` the true per-level shapes
+    (default: ``level_shapes`` of the stack); ``left_patches`` optionally
+    the extractor's left-view patches.
     """
-    n_levels = pyr_l.shape[0]
-    lvl_hw = level_hw or pyr_ops.level_shapes(
-        pyr_l.shape[1], pyr_l.shape[2], n_levels, scale
-    )
+    ragged = isinstance(pyr_l, (list, tuple))
+    if ragged:
+        lvl_hw = [(p.shape[0], p.shape[1]) for p in pyr_l]
+    else:
+        lvl_hw = level_hw or pyr_ops.level_shapes(pyr_l.shape[1], pyr_l.shape[2], pyr_l.shape[0], scale)
     dev = left.xy.device
     # --- stage 1: banded Hamming match ----------------------------------
     sigma_l = scale ** left.level.to(torch.float32)
@@ -162,10 +177,14 @@ def compute_stereo_matches(
     xr_match = right.xy[best_idx.to(torch.int64), 0]  # [N] level-0 right u
 
     # --- stage 2: SAD subpixel at each feature's own level ---------------
-    nl, hh, ww = pyr_l.shape
-    atlas_l = pyr_l.reshape(nl * hh, ww)
-    atlas_r = pyr_r.reshape(nl * hh, ww)
-    row_off = torch.arange(nl, dtype=torch.int32, device=dev) * hh
+    if ragged:
+        atlas_l, row_off = _stack_pyramid(pyr_l)
+        atlas_r, _ = _stack_pyramid(pyr_r)
+    else:
+        nl, hh, ww = pyr_l.shape
+        atlas_l = pyr_l.reshape(nl * hh, ww)
+        atlas_r = pyr_r.reshape(nl * hh, ww)
+        row_off = torch.arange(nl, dtype=torch.int32, device=dev) * hh
     level_h, level_w = _level_extents(tuple(map(tuple, lvl_hw)), dev)
     lvl = left.level.to(torch.int64)
     # the reference divides by scale ** level; XLA rewrites a / b ** c as

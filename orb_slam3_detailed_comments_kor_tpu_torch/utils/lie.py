@@ -1,8 +1,7 @@
 """SO(3) / SE(3) Lie-group operations on torch tensors.
 
-Port of ``orb_slam3_detailed_comments_kor_tpu/utils/lie.py`` (the functions
-the stereo tracking step, the stereo SLAM loop, loop closing and the
-inertial path use). Same
+Port of ``orb_slam3_detailed_comments_kor_tpu/utils/lie.py``, every
+function of it, the quaternion helpers included. Same
 conventions: rotations are 3x3 matrices; SE(3) is (R, t) acting as
 x -> R @ x + t; Sim(3) is (R, t, s) acting as x -> s R x + t; ``T_ab`` maps
 b-frame points to the a-frame. Small-angle branches are ``torch.where``
@@ -181,6 +180,11 @@ def se3_compose(Ra, ta, Rb, tb):
     return Ra @ Rb, _mv(Ra, tb) + ta
 
 
+def se3_apply(R, t, x):
+    """Apply transform to points x: [...,3]."""
+    return _mv(R, x) + t
+
+
 def se3_rel(Ra, ta, Rb, tb):
     """T_a ∘ T_b⁻¹."""
     Ri, ti = se3_inverse(Rb, tb)
@@ -270,3 +274,38 @@ def sim3_log(R, t, s):
     V = _sim3_V(phi, theta, sigma, s)
     rho = torch.linalg.solve_ex(V, t[..., None])[0][..., 0]
     return torch.cat([rho, phi, sigma[..., None]], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Quaternion helpers (w, x, y, z), the order of the EuRoC and TUM formats
+# ---------------------------------------------------------------------------
+
+def rotmat_to_quat(R):
+    """[...,3,3] -> [...,4] (w,x,y,z), Shepperd's method (branchless blend)."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw = torch.sqrt(torch.clamp(1.0 + tr, min=0.0)) * 0.5
+    qx = torch.sqrt(torch.clamp(1.0 + m00 - m11 - m22, min=0.0)) * 0.5
+    qy = torch.sqrt(torch.clamp(1.0 - m00 + m11 - m22, min=0.0)) * 0.5
+    qz = torch.sqrt(torch.clamp(1.0 - m00 - m11 + m22, min=0.0)) * 0.5
+    qx = torch.copysign(qx, m21 - m12)
+    qy = torch.copysign(qy, m02 - m20)
+    qz = torch.copysign(qz, m10 - m01)
+    q = torch.stack([qw, qx, qy, qz], dim=-1)
+    return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+
+
+def quat_to_rotmat(q):
+    """[...,4] (w,x,y,z) -> [...,3,3]."""
+    q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack(
+        [
+            torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], -1),
+            torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], -1),
+            torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], -1),
+        ],
+        dim=-2,
+    )

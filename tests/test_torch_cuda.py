@@ -39,7 +39,12 @@ a loop closer training its vocabulary online, card against CPU (the same
 centroids, database rows within 1e-5); and the three sharded solvers of
 ``parallel/`` at small sizes: one shard of the card gives the one-device
 solver's bits, four shards of it give the same bits twice and stay within
-tests/test_dist_ba.py's distributed-versus-single bounds of one shard.
+tests/test_dist_ba.py's distributed-versus-single bounds of one shard; and
+the remaining ported functions (the quaternion helpers and ``se3_apply``,
+``rotation_consistency_mask``, single-image FAST, ``build_pyramid`` and
+``gaussian_blur``, stereo over ragged pyramids, ``transform_exact``,
+``bow_vector`` and ``sparse_bow``) on the card against the CPU, with the
+CUDA ``fast_nms_stack`` against the plain ``fast_with_fallback_stack``.
 """
 
 import pytest
@@ -511,3 +516,110 @@ def test_sharded_solvers_on_the_card(dev, kind):
     assert float((flat(four_a)[0] - flat(one)[0]).abs().max()) <= 2e-3
     assert float((flat(four_a)[1] - flat(one)[1]).abs().max()) <= 5e-3
     assert float((flat(one)[0] - t).abs().max()) > 1e-3  # the solve moved the poses
+
+
+def _rest_inputs():
+    """The remaining functions' inputs at the small setup, made on the CPU
+    from seeds: a rendered 240x376 stereo pair, its features, random
+    rotations, angles and matches, a 256-word random tree and 300
+    descriptors."""
+    import numpy as np
+
+    from orb_slam3_detailed_comments_kor_tpu_torch.io import synthetic
+    from orb_slam3_detailed_comments_kor_tpu_torch.utils import lie
+
+    cfg = chip_smoke.loop_config(small=True)
+    c = cfg.camera
+    cam = torch.tensor([c.fx, c.fy, c.cx, c.cy])
+    il, ir, _ = synthetic.stereo_pair(cam, torch.eye(3), torch.zeros(3), chip_smoke.BASELINE,
+                                      synthetic.default_scene("cpu"), h=c.height, w=c.width)
+    rng = np.random.RandomState(0)
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    cents = (rng.rand(4 + 16 + 64 + 256, 256) < 0.5).astype(np.float32)
+    return dict(cfg=cfg, il=il, ir=ir, R=lie.so3_exp(T(rng.normal(size=(64, 3)).astype(np.float32))),
+                q=T(rng.normal(size=(64, 4)).astype(np.float32)), t=T(rng.normal(size=(64, 3)).astype(np.float32)),
+                x=T(rng.normal(size=(64, 5, 3)).astype(np.float32)),
+                angle_a=T(rng.uniform(0, 6.3, 400).astype(np.float32)),
+                angle_b=T(rng.uniform(0, 6.3, 300).astype(np.float32)), idx=T(rng.randint(0, 300, 400)),
+                match_valid=T(rng.rand(400) < 0.9), cents=T(cents), idf=T(rng.uniform(0.5, 3, 256).astype(np.float32)),
+                desc=T((rng.rand(300, 256) < 0.5).astype(np.uint8)), desc_valid=T(rng.rand(300) < 0.9))
+
+
+@pytest.mark.parametrize("name", ["lie", "rotation_mask", "fast", "pyramid", "stereo_ragged", "vocabulary"])
+def test_remaining_functions_card_matches_cpu(dev, name):
+    # the ported remaining functions on the card against the CPU at the
+    # small setup: integers, masks and word ids exactly; the FAST maps
+    # exactly (the CUDA fast_nms_stack against the plain
+    # fast_with_fallback_stack on the card too); quaternions, rotations and
+    # se3_apply within 1e-6 / 1e-5; the pyramid within 1e-3 and the blur
+    # within 1e-4 grey levels (the resize products sum in another order);
+    # the ragged-pyramid stereo's valid masks on >= 99 % of the features,
+    # depths within 1e-4 relative where both are valid; BoW vectors and
+    # sparse weights within 1e-6
+    from orb_slam3_detailed_comments_kor_tpu_torch.models import vocabulary as voc
+    from orb_slam3_detailed_comments_kor_tpu_torch.ops import fast as fast_ops, matching, pyramid, stereo
+    from orb_slam3_detailed_comments_kor_tpu_torch.slam import frontend
+    from orb_slam3_detailed_comments_kor_tpu_torch.utils import lie
+
+    inp = _rest_inputs()
+    cpu = torch.device("cpu")
+
+    def on(d):
+        return {k: v.to(d) if isinstance(v, torch.Tensor) else v for k, v in inp.items()}
+
+    def run(d):
+        a = on(d)
+        if name == "lie":
+            return dict(q=lie.rotmat_to_quat(a["R"]), R=lie.quat_to_rotmat(a["q"]),
+                        y=lie.se3_apply(a["R"][:, None], a["t"][:, None], a["x"]))
+        if name == "rotation_mask":
+            return dict(m=matching.rotation_consistency_mask(a["angle_a"], a["angle_b"], a["idx"], a["match_valid"]))
+        if name == "fast":
+            return dict(raw=fast_ops.fast_score_raw(a["il"], 20.0), score=fast_ops.fast_score(a["il"], 7.0),
+                        fwf=fast_ops.fast_with_fallback(a["il"], 20.0, 7.0, 24))
+        if name == "pyramid":
+            return dict(**{f"l{i}": x for i, x in enumerate(pyramid.build_pyramid(a["il"], 8, 1.2))},
+                        blur=pyramid.gaussian_blur(a["il"]))
+        if name == "stereo_ragged":
+            feats = orb.extract_orb_batch(torch.stack([inp["il"], inp["ir"]]), n_features=600, cell=24)
+            fl, fr = (orb.Features(*(x.to(d) for x in frontend._view(feats, i))) for i in (0, 1))
+            pyr_l, pyr_r = (pyramid.build_pyramid(inp[k], 8, 1.2) for k in ("il", "ir"))
+            sd = stereo.compute_stereo_matches(fl, fr, [x.to(d) for x in pyr_l], [x.to(d) for x in pyr_r],
+                                               a["cfg"].camera.bf)
+            return dict(valid=sd.valid, depth=sd.depth)
+        v = voc.Vocabulary(centroids=a["cents"], k=4, depth=4, idf=a["idf"])
+        words = voc.transform_exact(v, a["desc"], a["desc_valid"], chunk=100)
+        ids, wts = voc.sparse_bow(v, words, a["desc_valid"], topw=128)
+        return dict(words=words, bow=voc.bow_vector(v, words, a["desc_valid"]), ids=ids, wts=wts)
+
+    card, host = run(dev), run(cpu)
+    torch.cuda.synchronize()
+    tol = dict(q=1e-6, R=1e-6, y=1e-5, blur=1e-4, bow=1e-6, wts=1e-6, depth=None)
+    for k, h in host.items():
+        g = card[k].cpu()
+        assert card[k].device.type == "cuda" and g.dtype == h.dtype and g.shape == h.shape, k
+        if k == "valid":
+            assert (g == h).float().mean() >= 0.99 and int(h.sum()) > 100
+        elif k == "depth":
+            both = host["valid"] & card["valid"].cpu()
+            assert float(((g - h).abs() / h.abs())[both].max()) <= 1e-4
+        elif k.startswith("l"):
+            assert float((g - h).abs().max()) <= 1e-3, k
+        elif k in tol:
+            assert float((g - h).abs().max()) <= tol[k], k
+        else:
+            assert torch.equal(g, h), k
+    if name == "fast":
+        from orb_slam3_detailed_comments_kor_tpu_torch.ops import pyramid as pyr_ops
+
+        flat = torch.zeros((8, 240, 384), device=dev)
+        shapes = pyr_ops.level_shapes(240, 376, 8, 1.2)
+        for i, x in enumerate(pyr_ops.build_pyramid(inp["il"].to(dev), 8, 1.2)):
+            flat[i, :shapes[i][0], :shapes[i][1]] = x
+        hs, ws = tuple(s[0] for s in shapes), tuple(s[1] for s in shapes)
+        inb = fast_ops.level_interior(hs, ws, 3, 240, 384, dev)
+        before = cuda_fast.fast_nms.launches
+        got = cuda_fast.fast_nms_stack(flat, hs, ws, 8, 20.0, 7.0, 24)
+        assert cuda_fast.fast_nms.launches == before + 1
+        for a, b in zip(got, fast_ops.fast_with_fallback_stack(flat, 20.0, 7.0, 24, inb)):
+            assert torch.equal(a, b)

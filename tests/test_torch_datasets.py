@@ -4,20 +4,29 @@ leveled logger and the profiler block.
 
 The port keeps its own copies of ``io/datasets.py``, ``io/native_host.py``,
 ``io/online.py`` and ``utils/verbose.py``; both packages read the same
-files here, and both native libraries are built from the repository's
-``native/host_ops.cpp`` (the port's into its own ``_build/``).
+files here. The reference's native library is built from the repository's
+``native/host_ops.cpp`` with libpng; the port's from its own
+``native/host_ops.cpp``, whose PNG decoder needs zlib alone, into its own
+``_build/``.
 
 Tolerances: settings configs field-equal (``dataclasses.asdict``) and
 their rectification blocks exactly; ``undistort_rectify_map`` and
 ``remap_bilinear`` bit-equal; the native remap against numpy within 1e-4;
-the native decode against PIL within 0.5 grey levels (exactly for 8-bit
-PNGs); loaders, IMU windows and the online node's call logs exactly.
+the port's PNG decoder bit-equal to the reference's libpng build on every
+bit depth and colour type it reads, with every row filter, a palette with
+and without transparency and several IDAT chunks; gray+alpha equal to
+PIL's ``convert("L")`` (8 bits; 16 bits within one grey level, PIL keeping
+the high byte); the native decode against PIL within 0.5 grey levels
+(exactly for 8-bit gray); loaders, IMU windows and the online node's call
+logs exactly.
 """
 
 import dataclasses
 import json
 import os
+import struct
 import threading
+import zlib
 
 import numpy as np
 import pytest
@@ -196,17 +205,199 @@ def test_rectification_bit_equal(side):
 
 @pytest.fixture(scope="module")
 def nat():
-    """The port's native library, built from native/host_ops.cpp into the
-    port's _build/ (libpng and g++ are part of this environment)."""
+    """The port's native library, built from its own native/host_ops.cpp
+    into the port's _build/ (g++ and zlib are part of this environment)."""
     return tnh.load()
 
 
-def test_native_build_location(nat):
-    """The port builds its own library under its _build/, keyed on the
-    source's hash, and loads it again without rebuilding."""
+def test_native_build_location(nat, tmp_path, monkeypatch):
+    """The port builds its own source under its _build/, keyed on the
+    source's hash, and loads it again without rebuilding; the build command
+    links zlib and pthreads and no libpng, and the library needs no
+    libpng."""
     path = tnh.library_path()
     assert os.path.dirname(path) == tnh.BUILD_DIR and os.path.exists(path)
     assert os.path.basename(path).startswith("libhost_ops_") and tnh.load()._lib is nat._lib
+    assert tnh.SOURCE == os.path.join(os.path.dirname(tnh.BUILD_DIR), "native", "host_ops.cpp")
+    commands = []
+    run = tnh.subprocess.run
+    monkeypatch.setattr(tnh.subprocess, "run", lambda cmd, **k: commands.append(cmd) or run(cmd, **k))
+    monkeypatch.setattr(tnh, "BUILD_DIR", str(tmp_path))
+    tnh._build(str(tmp_path / "lib.so"))
+    assert len(commands) == 1 and commands[0][0] == "g++" and tnh.SOURCE in commands[0]
+    assert [a for a in commands[0] if a.startswith("-l")] == ["-lz", "-lpthread"]
+    needed = chip_smoke.needed_libraries(str(tmp_path / "lib.so"))
+    assert any(n.startswith("libz.") for n in needed) and not any("png" in n for n in needed), needed
+
+
+def _png_chunk(kind, data):
+    body = kind + data
+    return struct.pack(">I", len(data)) + body + struct.pack(">I", zlib.crc32(body) & 0xFFFFFFFF)
+
+
+def _paeth(a, b, c):
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def _filtered_rows(s, depth):
+    """The filtered scanlines of samples [H, W, channels]: packed MSB first
+    below 8 bits, 16-bit samples big-endian, row y filtered with type
+    y % 5, so that None, Sub, Up, Average and Paeth all occur."""
+    h, w, ch = s.shape
+    if depth < 8:
+        per = 8 // depth
+        padded = np.zeros((h, -(-w // per) * per), np.int64)
+        padded[:, :w] = s[..., 0]
+        groups = padded.reshape(h, -1, per)
+        rows = sum(groups[..., k] << (8 - depth * (k + 1)) for k in range(per)).astype(np.uint8)
+    else:
+        rows = s.reshape(h, w * ch).astype(">u2" if depth == 16 else np.uint8).view(np.uint8).reshape(h, -1)
+    raw = rows.astype(np.int64)
+    bpp = max(1, ch * depth // 8)
+    lines = []
+    for y in range(h):
+        x = raw[y]
+        up = raw[y - 1] if y else np.zeros_like(x)
+        left = np.concatenate([np.zeros(bpp, np.int64), x[:-bpp]])
+        upleft = np.concatenate([np.zeros(bpp, np.int64), up[:-bpp]])
+        kind = y % 5
+        pred = [0, left, up, (left + up) >> 1, _paeth(left, up, upleft)][kind]
+        lines.append(bytes([kind]) + ((x - pred) & 0xFF).astype(np.uint8).tobytes())
+    return b"".join(lines)
+
+
+# Adam7 passes: (first row, first column, row step, column step)
+ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4), (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1))
+
+
+def write_png(path, samples, color, depth, palette=None, trns=None, n_idat=1, interlace=0):
+    """A PNG of ``samples`` ([H, W, channels] integers at ``depth`` bits,
+    or palette indices) written by hand with ``zlib`` (see
+    ``_filtered_rows``), the zlib stream split into ``n_idat`` IDAT chunks;
+    ``interlace=1`` writes the seven Adam7 passes."""
+    s = np.asarray(samples)
+    s = s.reshape(s.shape[0], s.shape[1], -1)
+    h, w, _ = s.shape
+    if interlace:
+        data = b"".join(_filtered_rows(s[y0::dy, x0::dx], depth) for y0, x0, dy, dx in ADAM7
+                        if y0 < h and x0 < w)
+    else:
+        data = _filtered_rows(s, depth)
+    z = zlib.compress(data, 6)
+    cut = np.linspace(0, len(z), n_idat + 1).astype(int)
+    out = b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color, 0, 0, interlace))
+    if palette is not None:
+        out += _png_chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes())
+    if trns is not None:
+        out += _png_chunk(b"tRNS", np.asarray(trns, np.uint8).tobytes())
+    out += b"".join(_png_chunk(b"IDAT", z[a:b]) for a, b in zip(cut[:-1], cut[1:]))
+    with open(path, "wb") as f:
+        f.write(out + _png_chunk(b"IEND", b""))
+
+
+# name -> (PNG colour type, bit depth, channels, palette entries, tRNS, IDAT chunks, shape)
+PNG_FORMATS = {
+    "gray1": (0, 1, 1, None, False, 1, (23, 37)),
+    "gray2": (0, 2, 1, None, False, 1, (23, 37)),
+    "gray4": (0, 4, 1, None, False, 1, (23, 37)),
+    "gray8": (0, 8, 1, None, False, 1, (23, 37)),
+    "gray16": (0, 16, 1, None, False, 1, (23, 37)),
+    "rgb8": (2, 8, 3, None, False, 1, (23, 37)),
+    "rgb16": (2, 16, 3, None, False, 1, (23, 37)),
+    "rgba8": (6, 8, 4, None, False, 1, (23, 37)),
+    "rgba16": (6, 16, 4, None, False, 1, (23, 37)),
+    "palette8": (3, 8, 1, 200, False, 1, (23, 37)),
+    "palette8_trns": (3, 8, 1, 200, True, 1, (23, 37)),
+    "palette4": (3, 4, 1, 16, False, 1, (23, 37)),
+    "palette1_short": (3, 1, 1, 1, False, 1, (23, 37)),  # index 1 lies past the one PLTE entry
+    "gray8_idat7": (0, 8, 1, None, False, 7, (23, 37)),
+    "frame480x752": (0, 8, 1, None, False, 3, (480, 752)),
+}
+
+
+def _png_samples(name, rng):
+    color, depth, ch, n_pal, trns, n_idat, (h, w) = PNG_FORMATS[name]
+    top = 2 ** (min(depth, 8) if color == 3 else depth) - 1
+    samples = rng.randint(0, (min(n_pal, top + 1) if name != "palette1_short" else 2) if color == 3 else top + 1,
+                          (h, w, ch))
+    palette = rng.randint(0, 256, (n_pal, 3)) if color == 3 else None
+    alpha = rng.randint(0, 256, n_pal // 2) if trns else None
+    return samples, palette, alpha, n_idat
+
+
+@pytest.mark.parametrize("name", sorted(PNG_FORMATS))
+def test_png_decoder_bit_equal_to_libpng(nat, tmp_path, name):
+    """The port's zlib-only decoder against the reference's libpng build on
+    hand-written files (every row filter type in each): bit-equal."""
+    rng = np.random.RandomState(sorted(PNG_FORMATS).index(name))
+    samples, palette, alpha, n_idat = _png_samples(name, rng)
+    color, depth = PNG_FORMATS[name][:2]
+    p = str(tmp_path / "x.png")
+    write_png(p, samples, color, depth, palette=palette, trns=alpha, n_idat=n_idat)
+    want = jnh.load().load_gray(p)
+    got = nat.load_gray(p)
+    assert want is not None and got is not None and got.shape == samples.shape[:2]
+    assert got.dtype == np.float32 and np.array_equal(got.view(np.int32), want.view(np.int32))
+    assert np.array_equal(tds.load_gray(p), want)
+
+
+@pytest.mark.parametrize("depth", [8, 16])
+def test_png_gray_alpha_takes_gray_channel(nat, tmp_path, depth):
+    """Gray+alpha (F32): the port takes the gray channel, PIL's
+    ``convert("L")``; the reference's libpng build reads past each row
+    and is off by tens of grey levels."""
+    from PIL import Image
+
+    rng = np.random.RandomState(7)
+    samples = rng.randint(0, 2 ** depth, (19, 29, 2))
+    p = str(tmp_path / "la.png")
+    write_png(p, samples, 4, depth)
+    got = nat.load_gray(p)
+    assert np.array_equal(got, samples[..., 0].astype(np.float32) / (257.0 if depth == 16 else 1.0))
+    pil = np.asarray(Image.open(p).convert("L")).astype(np.float32)
+    if depth == 8:
+        assert np.array_equal(got, pil)
+        assert np.abs(jnh.load().load_gray(p) - pil).max() > 5.0  # the reference's fault
+    else:
+        assert np.abs(got - pil).max() < 1.0
+
+
+@pytest.mark.parametrize("fault", ["interlaced", "truncated", "bad_idat_crc", "bad_idat_data", "bad_filter"])
+def test_png_bad_files_refused(nat, tmp_path, fault):
+    """An interlaced, truncated or damaged file returns a nonzero code and
+    ``load_gray`` gives None, without a crash; the dataset loader then
+    decodes an interlaced file with PIL."""
+    rng = np.random.RandomState(11)
+    samples = rng.randint(0, 256, (21, 33, 1))
+    p = str(tmp_path / "bad.png")
+    write_png(p, samples, 0, 8, n_idat=2 if fault == "bad_idat_crc" else 1, interlace=int(fault == "interlaced"))
+    with open(p, "rb") as f:
+        data = bytearray(f.read())
+    at = data.index(b"IDAT") + 4  # the first IDAT's data
+    if fault == "truncated":
+        data = data[: at + 20]
+    elif fault == "bad_idat_crc":
+        data[at + 10] ^= 0x40
+    elif fault == "bad_idat_data":  # a zlib stream that inflate rejects, with a valid CRC
+        n = struct.unpack(">I", data[at - 8:at - 4])[0]
+        body = bytes([0x78, 0x9C, 0xFF]) + bytes(n - 3)
+        data[at:at + n + 4] = body + struct.pack(">I", zlib.crc32(b"IDAT" + body) & 0xFFFFFFFF)
+    elif fault == "bad_filter":  # filter type 9 on the first row, CRC kept valid
+        n = struct.unpack(">I", data[at - 8:at - 4])[0]
+        raw = bytearray(zlib.decompress(bytes(data[at:at + n])))
+        raw[0] = 9
+        body = zlib.compress(bytes(raw), 6)
+        data = data[:at - 8] + _png_chunk(b"IDAT", body) + _png_chunk(b"IEND", b"")
+    with open(p, "wb") as f:
+        f.write(bytes(data))
+    buf = np.empty((64, 64), np.float32)
+    h, w = tnh.ctypes.c_int(), tnh.ctypes.c_int()
+    rc = nat._lib.decode_gray(p.encode(), tnh._fptr(buf), 64, 64, tnh.ctypes.byref(h), tnh.ctypes.byref(w))
+    assert rc != 0 and nat.load_gray(p) is None
+    if fault == "interlaced":
+        assert np.array_equal(tds.load_gray(p), samples[..., 0].astype(np.float32))
 
 
 def test_native_remap_matches_numpy(nat):

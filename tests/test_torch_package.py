@@ -228,3 +228,56 @@ def test_monocular_systems_build_on_the_card_by_default(sensor):
     slam = SlamSystem(tcfg.SLAMConfig(sensor=getattr(tcfg.SensorType, sensor)), device="cpu")
     assert slam.state == TrackingState.NOT_INITIALIZED and slam.ms.kf_t_cw.device.type == "cpu"
     assert slam.cfg.is_inertial == (sensor == "IMU_MONOCULAR")
+
+
+# the reference's top-level functions that the port replaces rather than
+# copies: the Pallas modules (the CUDA wrappers ``ops/cuda_*.py``), the
+# JAX profiler hook (``utils.timing.torch_profile``), the reference's
+# library path helper (the port builds its own source into ``_build/``)
+# and the checkpoint's NamedTuple packing (the port writes the same
+# ``.npz`` layout field by field)
+REPLACED = {"ops/pallas_fast.py": None, "ops/pallas_gather.py": None, "ops/pallas_matching.py": None,
+            "utils/timing.py": {"jax_profile"}, "io/native_host.py": {"_native_dir"},
+            "slam/checkpoint.py": {"_pack_namedtuple", "_unpack_namedtuple"}}
+# the functions the last slice ported: the reference's argument names, in order
+LAST_SLICE = [
+    ("models.vocabulary", n) for n in ("transform_exact", "bow_vector_soft", "bow_vector", "l1_score", "sparse_bow",
+                                       "score_against_database")] + [
+    ("ops.stereo", "_stack_pyramid"), ("ops.pyramid", "build_pyramid"), ("ops.pyramid", "_gauss_kernel"),
+    ("ops.pyramid", "gaussian_blur"), ("ops.fast", "_has_contiguous_run"), ("ops.fast", "fast_score_raw"),
+    ("ops.fast", "fast_score"), ("ops.fast", "fast_with_fallback_stack"), ("ops.fast", "fast_with_fallback"),
+    ("ops.matching", "rotation_consistency_mask"), ("utils.lie", "rotmat_to_quat"),
+    ("utils.lie", "quat_to_rotmat"), ("utils.lie", "se3_apply")]
+
+
+def test_every_reference_function_has_a_counterpart():
+    """Every top-level function and class of every module of the JAX
+    package has a function, class or alias of the same name in the port's
+    module of the same path, except those the port replaces (REPLACED);
+    the last slice's functions take the reference's arguments, in its
+    order."""
+    ref_pkg = os.path.join(REPO, "orb_slam3_detailed_comments_kor_tpu")
+    missing = []
+    for root, _, files in os.walk(ref_pkg):
+        for fn in sorted(files):
+            if not fn.endswith(".py"):
+                continue
+            rel = os.path.relpath(os.path.join(root, fn), ref_pkg)
+            if rel in REPLACED and REPLACED[rel] is None:
+                continue
+
+            def defs(path, aliases):
+                with open(path) as f:
+                    body = ast.parse(f.read()).body
+                return {n.name for n in body if isinstance(n, (ast.FunctionDef, ast.ClassDef))} | ({
+                    t.id for n in body if isinstance(n, ast.Assign) for t in n.targets if isinstance(t, ast.Name)}
+                    if aliases else set())
+
+            port = os.path.join(REPO, PKG, rel)
+            want = defs(os.path.join(root, fn), False) - REPLACED.get(rel, set())
+            missing += [f"{rel}: {n}" for n in sorted(want - (defs(port, True) if os.path.exists(port) else set()))]
+    assert not missing, missing
+    for m, name in LAST_SLICE:
+        ref = inspect.signature(getattr(importlib.import_module(f"orb_slam3_detailed_comments_kor_tpu.{m}"), name))
+        got = inspect.signature(getattr(importlib.import_module(f"{PKG}.{m}"), name))
+        assert list(got.parameters) == list(ref.parameters), (m, name)

@@ -7,8 +7,10 @@ One small stereo-inertial sequence (``chip_smoke.si_config(small=True)``'s
 layout by ``chip_smoke.write_euroc_sequence``: 8-bit PNGs, ``imu0/
 data.csv``, the ground truth and a settings YAML in the reference's format
 with rectification blocks, with absolute EuRoC-like stamps (ROADMAP F29).
-Both runners read the same PNGs through the same native decoder and
-rectify them with the same maps, so they get the same float images; both
+Both runners read the same PNGs through their native decoders (the
+reference's libpng build, the port's zlib-only one, bit-equal on these
+files) and rectify them with the same maps, so they get the same float
+images; both
 build their configuration from the settings file (the capacity and
 tracking defaults). The reference's runner runs in a spawned process with
 the CPU's asynchronous dispatch off, every deferred read counted as ready
@@ -91,7 +93,8 @@ def runs(tmp_path_factory):
         with chip_smoke.keyframes_recorded(tsys.SlamSystem, "track_stereo", {}) as rec:
             res = run_dataset.main(argv + ["--out", out_path], device="cpu")
         port = _summary(rec, out_path)
-        port.update(decoder=res["decoder"], ate_m=res["ate_m"], device=res["slam"].device.type)
+        port.update(decoder=res["decoder"], ate_m=res["ate_m"], device=res["slam"].device.type,
+                    **{k: res[k] for k in ("frame_ms", "feed_ms", "track_ms")})
         jax_out, rgbd = ref.result(), rgbd.result()
     return port, jax_out, rgbd
 
@@ -145,6 +148,15 @@ def test_runner_on_the_cpu(runs):
     port, _, _ = runs
     assert port["device"] == "cpu" and port["decoder"] == "native"
     assert port["ate_m"] is not None and port["ate_m"] < 0.05
+    _check_split(port, SMALL["frames"])
+
+
+def _check_split(res, n):
+    """Each frame's wall time is its feeder wait plus its track call."""
+    frame, feed, track = (np.array(res[k]) for k in ("frame_ms", "feed_ms", "track_ms"))
+    assert frame.shape == feed.shape == track.shape == (n,)
+    assert (feed >= 0).all() and (track > 0).all()
+    np.testing.assert_allclose(frame, feed + track, rtol=1e-9, atol=1e-6)
 
 
 def test_same_frames_and_keyframes(runs):
@@ -176,6 +188,7 @@ def test_rgbd_runner(runs):
     _, _, rgbd = runs
     assert rgbd["frames"] == RGBD_FRAMES == rgbd["rows"].shape[0] and rgbd["rows"].shape[1] == 8
     assert rgbd["state"] == 1 and rgbd["n_kf"] >= 1 and rgbd["decoder"] == "native"
+    _check_split(rgbd, RGBD_FRAMES)
     assert rgbd["ate_m"] < 0.05, rgbd["ate_m"]
     assert abs(rgbd["rows"][0, 0] - TUM_T0) < 1e-5
 

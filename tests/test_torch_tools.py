@@ -1,5 +1,6 @@
 """The port's host tools (``tools/torch_train_vocab.py``,
-``tools/torch_eval_vocab.py``, ``tools/torch_run_long_synthetic.py``)
+``tools/torch_eval_vocab.py``, ``tools/torch_run_long_synthetic.py``,
+``tools/torch_dist_ba_efficiency.py``, ``tools/torch_prof_stages.py``)
 against the reference's tools, at small sizes on the CPU.
 
 Tolerances: the image generators and the query augmentations exactly (the
@@ -9,7 +10,11 @@ exactly and its idf within 1e-6 against the reference's
 port's, extracted by the tool); the evaluation's result keys those of the
 reference's committed report; the long run's trajectory file byte-equal to
 the reference's ``save_euroc`` of the same arrays, and its result keys
-those of the reference tool's.
+those of the reference tool's; the sharded-GBA problem equal to the
+reference tool's ``make_problem`` (the same draws, at a tiny size) and
+every sharded solve within 1e-3 m of the one-device solve; the stage
+profiler's two modes, spans and percentiles on the stereo-inertial pass's
+first two frames.
 """
 
 import ast
@@ -28,9 +33,12 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "tools"))
 
+import dist_ba_efficiency  # noqa: E402
 import eval_vocab  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
+import torch_dist_ba_efficiency  # noqa: E402
 import torch_eval_vocab  # noqa: E402
+import torch_prof_stages  # noqa: E402
 import torch_run_long_synthetic  # noqa: E402
 import torch_train_vocab  # noqa: E402
 import train_vocab  # noqa: E402
@@ -149,3 +157,46 @@ def test_long_synthetic_tool_rows_and_keys(tmp_path, monkeypatch):
         rows = a.read()
         assert rows == b.read()
     assert len(rows.splitlines()) == 6
+
+
+def test_dist_ba_efficiency_tool(tmp_path, monkeypatch):
+    """The reference tool's problem at K=8, L=64, 4 observations a
+    landmark, then one LM iteration of 2 CG steps on meshes of 2 and 4
+    shards of the CPU."""
+    monkeypatch.setattr(dist_ba_efficiency, "K", 8)
+    monkeypatch.setattr(dist_ba_efficiency, "L", 64)
+    monkeypatch.setattr(dist_ba_efficiency, "OBS_PER", 4)
+    ref = dist_ba_efficiency.make_problem()
+    got = torch_dist_ba_efficiency.make_problem(8, 64, 4, device="cpu")
+    for a, b in zip(ref[:3] + tuple(ref[3][:6]) + ref[4:], got[:3] + tuple(got[3][:6]) + got[4:]):
+        assert np.array_equal(np.asarray(a), b.numpy())
+    out = str(tmp_path / "eff.json")
+    res = torch_dist_ba_efficiency.main(device="cpu", shards=(2, 4), k=8, n_lm=64, obs_per=4, iters=1, cg=2, reps=1,
+                                        out=out, log=lambda s: None)
+    with open(out) as f:
+        assert json.load(f) == res
+    assert [r["devices"] for r in res["rows"]] == [1, 2, 4] and res["device"] == "cpu"
+    assert all(r["max_dX_vs_single"] <= 1e-3 for r in res["rows"][1:]) and "not scaling" in res["note"]
+
+
+def test_prof_stages_tool(monkeypatch, tmp_path):
+    """The stereo-inertial pass's first two frames at the small setup (its
+    initialization and a tracked frame), no warm-up, with a 16-word
+    vocabulary standing in for the 100,000-word default (whose BoW insert
+    takes seconds on one CPU thread): both modes, the frame and tracking
+    spans, the blocking mode's percentiles."""
+    frames = 2
+    rng = np.random.RandomState(0)
+    tiny = tvoc.Vocabulary(centroids=torch.from_numpy((rng.rand(4 + 16, 256) < 0.5).astype(np.float32)), k=4,
+                           depth=2, idf=torch.ones(16))
+    monkeypatch.setattr(tvoc, "load_default", lambda device="cuda": tiny)
+    out = str(tmp_path / "stages.json")
+    res = torch_prof_stages.main("si", frames=frames, warmup=0, device="cpu", small=True, out=out,
+                                 log=lambda s: None)
+    with open(out) as f:
+        assert json.load(f) == res
+    for mode in ("throughput", "blocking"):
+        rec = res[mode]
+        assert rec["state"] == 1 and rec["keyframes"] >= 1 and rec["frames_per_s"] > 0
+        assert rec["spans"]["frame"]["count"] == frames and "frame/track/dispatch" in rec["spans"]
+    assert res["blocking"]["p50_ms"] <= res["blocking"]["max_ms"] and len(res["blocking"]["slowest_frames"]) == frames
