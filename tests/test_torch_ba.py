@@ -21,13 +21,11 @@ import numpy as np
 import pytest
 import torch
 
-torch.set_num_threads(1)
-
-from orb_slam3_detailed_comments_kor_tpu.optim import ba as jba  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.optim import factors as jf  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.optim import ba as tba  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.optim import factors as tf  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.utils import lie as tlie  # noqa: E402
+from orb_slam3_detailed_comments_kor_tpu.optim import ba as jba
+from orb_slam3_detailed_comments_kor_tpu.optim import factors as jf
+from orb_slam3_detailed_comments_kor_tpu_torch.optim import ba as tba
+from orb_slam3_detailed_comments_kor_tpu_torch.optim import factors as tf
+from orb_slam3_detailed_comments_kor_tpu_torch.utils import lie as tlie
 
 CAM = np.array([230.0, 230.0, 188.0, 120.0], np.float32)
 BF = 0.11 * 230.0

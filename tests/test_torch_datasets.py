@@ -32,19 +32,17 @@ import numpy as np
 import pytest
 import torch
 
-torch.set_num_threads(1)
-
-import chip_smoke  # noqa: E402
-from test_datasets_native import EUROC_YAML  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.io import datasets as jds  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.io import native_host as jnh  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.io import online as jon  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.utils import verbose as jverbose  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.io import datasets as tds  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.io import native_host as tnh  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.io import online as ton  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.utils import timing as ttiming  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.utils import verbose as tverbose  # noqa: E402
+import chip_smoke
+from test_datasets_native import EUROC_YAML
+from orb_slam3_detailed_comments_kor_tpu.io import datasets as jds
+from orb_slam3_detailed_comments_kor_tpu.io import native_host as jnh
+from orb_slam3_detailed_comments_kor_tpu.io import online as jon
+from orb_slam3_detailed_comments_kor_tpu.utils import verbose as jverbose
+from orb_slam3_detailed_comments_kor_tpu_torch.io import datasets as tds
+from orb_slam3_detailed_comments_kor_tpu_torch.io import native_host as tnh
+from orb_slam3_detailed_comments_kor_tpu_torch.io import online as ton
+from orb_slam3_detailed_comments_kor_tpu_torch.utils import timing as ttiming
+from orb_slam3_detailed_comments_kor_tpu_torch.utils import verbose as tverbose
 
 # TUM-VI's 512x512 stereo-fisheye settings (TUM_512.yaml's layout: a second
 # Kannala-Brandt camera and the right-to-left extrinsic Tlr)

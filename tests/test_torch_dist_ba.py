@@ -39,22 +39,20 @@ import numpy as np
 import pytest
 import torch
 
-torch.set_num_threads(1)
-
-import test_ba  # noqa: E402
-import test_vi_ba  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.io import synthetic as jsyn  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.ops import orb as jorb  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.parallel import dist_ba as jdist  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.utils import lie as jlie  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.io import synthetic as tsyn  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.ops import imu as timu  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.ops import orb as torb  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.optim import ba as tba  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.optim import factors as tf  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.optim import vi_ba as tvb  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.parallel import dist_ba, dist_vi_ba, dryrun  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.utils import lie as tlie  # noqa: E402
+import test_ba
+import test_vi_ba
+from orb_slam3_detailed_comments_kor_tpu.io import synthetic as jsyn
+from orb_slam3_detailed_comments_kor_tpu.ops import orb as jorb
+from orb_slam3_detailed_comments_kor_tpu.parallel import dist_ba as jdist
+from orb_slam3_detailed_comments_kor_tpu.utils import lie as jlie
+from orb_slam3_detailed_comments_kor_tpu_torch.io import synthetic as tsyn
+from orb_slam3_detailed_comments_kor_tpu_torch.ops import imu as timu
+from orb_slam3_detailed_comments_kor_tpu_torch.ops import orb as torb
+from orb_slam3_detailed_comments_kor_tpu_torch.optim import ba as tba
+from orb_slam3_detailed_comments_kor_tpu_torch.optim import factors as tf
+from orb_slam3_detailed_comments_kor_tpu_torch.optim import vi_ba as tvb
+from orb_slam3_detailed_comments_kor_tpu_torch.parallel import dist_ba, dist_vi_ba, dryrun
+from orb_slam3_detailed_comments_kor_tpu_torch.utils import lie as tlie
 
 CPU = torch.device("cpu")
 MESH8 = [CPU] * 8

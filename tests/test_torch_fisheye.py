@@ -6,18 +6,17 @@ One module fixture runs both packages' stereo-fisheye systems
 (``chip_smoke.sensor_config("fisheye", small=True)``, the rig of
 ``tests/test_fisheye.py:100-138``: two 256x256 KB8 cameras, fx 95,
 ``Tlr`` a 0.10 m x-offset, 500 features, synchronous decisions) over 16
-strafe frames (0.04 m/frame) on the same numpy images, the port's in a
-spawned process (``port_side``); then each package's map, saved, is
-loaded in both packages and resumed over two more frames. The
-reference's ``process_stereo_fisheye`` (frame 0, the identity pose: the
-scene of ``tests/test_fisheye_rig.py:36-50``), rig ``local_ba_step`` and
-``full_fisheye_step`` calls are captured. The rig branches of the
-inertial programs (``vio_frame_step``, the dense and PCG VI-BA, the
+strafe frames (0.04 m/frame) on the same numpy images, the reference's
+first; then each package's map, saved, is loaded in both packages and
+resumed over two more frames. The reference's ``process_stereo_fisheye``
+(frame 0, the identity pose: the scene of
+``tests/test_fisheye_rig.py:36-50``), rig ``local_ba_step`` and
+``full_fisheye_step`` calls in its run are captured. The rig branches of
+the inertial programs (``vio_frame_step``, the dense and PCG VI-BA, the
 init-FIBA) and of the whole-map BA run on the reference's stereo map as
 its first rig local-BA slice leaves it, with an inertial block made from
-one constant IMU batch per keyframe, in a second spawned process that
-compiles them beforehand (``warm_map_programs``); the reference's sides
-of the module-level tests run in the test process after its run.
+one constant IMU batch per keyframe; the reference's sides of those and
+of the module-level tests run in the fixture right after its run.
 
 Tolerances: ``process_stereo_fisheye`` levels, descriptors, validity and
 the depth and right-pixel masks exactly, right pixels within 1e-4 and
@@ -36,11 +35,7 @@ checkpoints: every array exactly both ways, two resumed frames within 2e-3
 m / 1e-3 rad.
 """
 
-import concurrent.futures
-import multiprocessing
 import os
-import threading
-import time
 
 import jax
 import jax.numpy as jnp
@@ -48,33 +43,31 @@ import numpy as np
 import pytest
 import torch
 
-torch.set_num_threads(1)
-
-import chip_smoke  # noqa: E402
-from test_torch_system import assert_same_arrays, system_arrays, to_jax_config  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.models import camera as jcam  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.ops import imu as jimu  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.optim import ba as jba  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.optim import factors as jf  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.optim import vio as jvio  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.slam import frontend as jfe  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.slam import inertial as jin  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.slam import loop_closing as jlc  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.slam import tracking as jtr  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.slam.system import SlamSystem as JaxSlam  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.utils import lie as jlie  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.io import synthetic as tsyn  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.models import camera as tcam  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.ops import imu as timu  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.optim import ba as tba  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.optim import factors as tf  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.optim import vio as tvio  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.slam import frontend as tfe  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.slam import inertial as tin  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.slam import loop_closing as tlc  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.slam import map_state as tms  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.slam import tracking as ttr  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.slam.system import SlamSystem as TorchSlam  # noqa: E402
+import chip_smoke
+from test_torch_system import assert_same_arrays, system_arrays, to_jax_config
+from orb_slam3_detailed_comments_kor_tpu.models import camera as jcam
+from orb_slam3_detailed_comments_kor_tpu.ops import imu as jimu
+from orb_slam3_detailed_comments_kor_tpu.optim import ba as jba
+from orb_slam3_detailed_comments_kor_tpu.optim import factors as jf
+from orb_slam3_detailed_comments_kor_tpu.optim import vio as jvio
+from orb_slam3_detailed_comments_kor_tpu.slam import frontend as jfe
+from orb_slam3_detailed_comments_kor_tpu.slam import inertial as jin
+from orb_slam3_detailed_comments_kor_tpu.slam import loop_closing as jlc
+from orb_slam3_detailed_comments_kor_tpu.slam import tracking as jtr
+from orb_slam3_detailed_comments_kor_tpu.slam.system import SlamSystem as JaxSlam
+from orb_slam3_detailed_comments_kor_tpu.utils import lie as jlie
+from orb_slam3_detailed_comments_kor_tpu_torch.io import synthetic as tsyn
+from orb_slam3_detailed_comments_kor_tpu_torch.models import camera as tcam
+from orb_slam3_detailed_comments_kor_tpu_torch.ops import imu as timu
+from orb_slam3_detailed_comments_kor_tpu_torch.optim import ba as tba
+from orb_slam3_detailed_comments_kor_tpu_torch.optim import factors as tf
+from orb_slam3_detailed_comments_kor_tpu_torch.optim import vio as tvio
+from orb_slam3_detailed_comments_kor_tpu_torch.slam import frontend as tfe
+from orb_slam3_detailed_comments_kor_tpu_torch.slam import inertial as tin
+from orb_slam3_detailed_comments_kor_tpu_torch.slam import loop_closing as tlc
+from orb_slam3_detailed_comments_kor_tpu_torch.slam import map_state as tms
+from orb_slam3_detailed_comments_kor_tpu_torch.slam import tracking as ttr
+from orb_slam3_detailed_comments_kor_tpu_torch.slam.system import SlamSystem as TorchSlam
 
 KB8 = "kannala_brandt8"
 STEREO = dict(frames=16, speed=0.04)
@@ -158,21 +151,6 @@ def inertial_block(ms, n_kf):
     return npy(ikf), npy(pre)
 
 
-def save_atomic(system, path):
-    system.save_map(path[:-4] + ".part.npz")
-    os.replace(path[:-4] + ".part.npz", path)
-
-
-def wait_for(path, failed, timeout=600.0):
-    """Wait until the file ``path`` exists; raise once ``failed()`` is
-    true."""
-    t0 = time.time()
-    while not os.path.exists(path):
-        if failed() or time.time() - t0 > timeout:
-            raise RuntimeError(f"{path} was never written")
-        time.sleep(0.2)
-
-
 def resume(make, path, extra):
     """A fresh system (``make()``) loads the map at ``path``: its arrays
     right after the load, and its trajectory over the ``extra`` frames."""
@@ -186,65 +164,6 @@ def resume(make, path, extra):
     return arrays, system.trajectory_arrays()
 
 
-def port_side(cfg, frames, folder):
-    """The port's run in a process of its own (in the fixture's process it
-    would share the interpreter lock with the reference's tracing): over
-    all but the last two frames, its map saved to ``folder`` as port.npz;
-    then both packages' maps resumed in the port over the last two."""
-    torch.set_num_threads(3)
-    system = TorchSlam(cfg, device="cpu")
-    out = run(system, frames[:-2], "stereo")
-    path = os.path.join(folder, "port.npz")
-    save_atomic(system, path)
-    n = system.n_kf
-    out.update(system=None, written=system_arrays(system), kf_uvr=system.ms.kf_uvr[:n].numpy())
-    make = lambda: TorchSlam(cfg, device="cpu")
-    out["resumed"] = {"port": resume(make, path, frames[-2:])}
-    jax_path = os.path.join(folder, "jax.npz")
-    wait_for(jax_path, lambda: os.path.exists(jax_path + ".failed"))
-    out["resumed"]["jax"] = resume(make, jax_path, frames[-2:])
-    return out
-
-
-def warm_map_programs(cfg):
-    """Compile the map-level rig programs on inputs of the shapes a run
-    gives them (``map_inputs`` of the empty map), before the run's map
-    exists; the same process then runs them on it from its caches."""
-    ms = npy(JaxSlam(to_jax_config(cfg)).ms._asdict())
-    n, lms = cfg.orb.n_features, cfg.capacity.max_landmarks
-    frame = dict(xy=np.zeros((n, 2), np.float32), u_right=-np.ones(n, np.float32), level=np.zeros(n, np.int32),
-                 uv_r=-np.ones((n, 2), np.float32))
-    tracked = dict(lm_feat=-np.ones(lms, np.int32), lm_inlier=np.zeros(lms, bool), R_cw=np.eye(3, dtype=np.float32),
-                   t_cw=np.zeros(3, np.float32))
-    reference_programs(map_inputs(ms, 2, (None, frame, tracked), cfg.camera.bf))
-
-
-def reference_programs(map_in=None):
-    """The reference's sides of the module-level tests (STANDALONE_REFS)
-    or, given ``map_in``, of the map-level rig programs (``map_refs``), in
-    a process of its own, one compile at a time."""
-    saved_devices = jax.devices
-    jax.devices = lambda *a: saved_devices(*a)[:1]  # the reference's one-device branches
-    try:
-        fns = STANDALONE_REFS if map_in is None else map_refs(map_in)
-        return {name: npy(f()) for name, f in fns.items()}
-    finally:
-        jax.devices = saved_devices
-
-
-def reference_side(system, cfg, extra, folder, port_failed):
-    """The reference's map saved to ``folder`` as jax.npz, and both
-    packages' maps resumed in the reference over ``extra``."""
-    path = os.path.join(folder, "jax.npz")
-    save_atomic(system, path)
-    make = lambda: JaxSlam(to_jax_config(cfg))
-    out = {"written": system_arrays(system), "resumed": {"jax": resume(make, path, extra)}}
-    port_path = os.path.join(folder, "port.npz")
-    wait_for(port_path, port_failed)
-    out["resumed"]["port"] = resume(make, port_path, extra)
-    return out
-
-
 @pytest.fixture(scope="module")
 def fish(tmp_path_factory):
     cfg_s = chip_smoke.sensor_config("fisheye", small=True)
@@ -254,78 +173,53 @@ def fish(tmp_path_factory):
     captured = {"local_ba_step": [], "full_fisheye_step": [], "process_stereo_fisheye": []}
     saved = {(jtr, "local_ba_step"): jtr.local_ba_step, (jtr, "full_fisheye_step"): jtr.full_fisheye_step,
              (jfe, "process_stereo_fisheye"): jfe.process_stereo_fisheye}
-    which = threading.local()
-
-    first_lba = threading.Event()
+    steps_before_lba = []  # the fused steps captured when the first local-BA slice ended
 
     def capture(name, fn):
         def wrapper(*a, **k):
             args = (npy(a), npy(k))  # before the call: the fused step donates its map
             out = fn(*a, **k)
-            captured[name].append((getattr(which, "run", None),) + args + (npy(out),))
-            if name == "local_ba_step" and getattr(which, "run", None) == "stereo":
-                first_lba.set()
+            captured[name].append(("stereo",) + args + (npy(out),))
+            if name == "local_ba_step" and not steps_before_lba:
+                steps_before_lba.append(len(captured["full_fisheye_step"]))
             return out
         if hasattr(fn, "__wrapped__"):  # the fused step traces the front end's unjitted body
             wrapper.__wrapped__ = fn.__wrapped__
         return wrapper
 
-    def tagged(tag, fn, *a, **k):
-        which.run = tag
-        return fn(*a, **k)
-
-    for (mod, name), fn in saved.items():
-        setattr(mod, name, capture(name, fn))
     saved_devices = jax.devices
-    jax.devices = lambda *a: saved_devices(*a)[:1]  # the reference's one-device GBA branch
+    jax.devices = lambda *a: saved_devices(*a)[:1]  # the reference's one-device branches
     folder = str(tmp_path_factory.mktemp("fish"))
-    spawn = multiprocessing.get_context("spawn")
+    paths = {name: os.path.join(folder, f"{name}.npz") for name in ("jax", "port")}
     try:
-        # the port's side and the map-level programs in two processes of
-        # their own, the reference's run here
-        with concurrent.futures.ThreadPoolExecutor(2) as pool, \
-                concurrent.futures.ProcessPoolExecutor(1, mp_context=spawn) as port, \
-                concurrent.futures.ProcessPoolExecutor(1, mp_context=spawn) as map_programs:
-            t = port.submit(port_side, cfg_s, st, folder)
-            # the map-level programs compile before the run's map exists
-            warm = map_programs.submit(warm_map_programs, cfg_s)
-            jobs = dict(j=pool.submit(tagged, "stereo", run, JaxSlam(to_jax_config(cfg_s)), st[:-2], "stereo"))
-            # the map-level programs take the reference's map as its first
-            # rig local-BA slice finds it (two keyframes), so that they run
-            # beside the rest of the runs
-            while not first_lba.wait(1.0):
-                if jobs["j"].done():  # a run that ends (or fails) before its first slice
-                    jobs["j"].result()
-                    raise AssertionError("the reference's stereo run ran no rig local-BA slice")
-            _, lba_args, _, lba_out = [c for c in captured["local_ba_step"] if c[0] == "stereo"][0]
-            step_out = [c for c in captured["full_fisheye_step"] if c[0] == "stereo"][-1][3]
-            n_kf = int(np.asarray(lba_out["kf_valid"]).sum())
-            map_in = map_inputs(lba_out, n_kf, step_out, cfg_s.camera.bf)
-            refs = [map_programs.submit(reference_programs, map_in)]
-            try:
-                j = jobs["j"].result()
-            except BaseException:
-                open(os.path.join(folder, "jax.npz.failed"), "w").close()
-                raise
-            # the checkpoint cases and the reference's sides of the
-            # module-level tests, beside the port's run and the map-level
-            # programs
-            ref_side = pool.submit(reference_side, j["system"], cfg_s, st[-2:], folder, t.done)
-            refs.append(pool.submit(reference_programs))
-            warm.result()
-            out = dict(j=j, t=t.result(), refs={k: v for job in refs for k, v in job.result().items()})
-            ref_side = ref_side.result()
-            out["checkpoints"] = {
-                name: dict(written=written, right_rows=int((np.load(os.path.join(folder, f"{name}.npz"))
-                                                            ["ms_kf_uvr"][..., 0] >= 0).sum()),
-                           loaded=[ref_side["resumed"][name], out["t"]["resumed"][name]])
-                for name, written in (("jax", ref_side["written"]), ("port", out["t"]["written"]))}
-    finally:
         for (mod, name), fn in saved.items():
-            setattr(mod, name, fn)
+            setattr(mod, name, capture(name, fn))
+        try:
+            j = run(JaxSlam(to_jax_config(cfg_s)), st[:-2], "stereo")
+        finally:
+            for (mod, name), fn in saved.items():
+                setattr(mod, name, fn)
+        # the map-level programs take the reference's map as its first rig
+        # local-BA slice leaves it (two keyframes)
+        lba_out = captured["local_ba_step"][0][3]
+        step_out = captured["full_fisheye_step"][steps_before_lba[0] - 1][3]
+        n_kf = int(np.asarray(lba_out["kf_valid"]).sum())
+        map_in = map_inputs(lba_out, n_kf, step_out, cfg_s.camera.bf)
+        refs = {name: npy(f()) for name, f in {**STANDALONE_REFS, **map_refs(map_in)}.items()}
+        t = run(TorchSlam(cfg_s, device="cpu"), st[:-2], "stereo")
+        t["kf_uvr"] = t["system"].ms.kf_uvr[:t["system"].n_kf].numpy()
+        # each package's map, saved, loaded in both and resumed over the
+        # last two frames
+        makers = (lambda: JaxSlam(to_jax_config(cfg_s)), lambda: TorchSlam(cfg_s, device="cpu"))
+        checkpoints = {}
+        for name, out in (("jax", j), ("port", t)):
+            out["system"].save_map(paths[name])
+            checkpoints[name] = dict(written=system_arrays(out["system"]),
+                                     right_rows=int((np.load(paths[name])["ms_kf_uvr"][..., 0] >= 0).sum()),
+                                     loaded=[resume(make, paths[name], st[-2:]) for make in makers])
+    finally:
         jax.devices = saved_devices
-    out.update(cfg_s=cfg_s, st=st, captured=captured, map=map_in)
-    return out
+    return dict(j=j, t=t, refs=refs, checkpoints=checkpoints, cfg_s=cfg_s, st=st, captured=captured, map=map_in)
 
 
 # ---------------------------------------------------------------------------
@@ -470,7 +364,7 @@ def test_pose_optimization_rig(fish, case):
 
 
 # the reference computations of the tests above, run in the module
-# fixture's threads beside the system runs
+# fixture
 STANDALONE_REFS = dict(rig_rows=ref_rig_rows, **{f"pose_{c}": (lambda c=c: ref_pose_optimization(c))
                                                  for c in POSE_CASES})
 

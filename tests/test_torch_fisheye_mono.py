@@ -3,12 +3,13 @@ monocular KB8 path, loop verification on KB8 and the stereo matcher's
 branch without left patches, against the JAX reference on the CPU (the
 stereo-fisheye rig: ``tests/test_torch_fisheye.py``).
 
-One module fixture runs, in threads, both packages' monocular KB8 systems
+One module fixture runs both packages' monocular KB8 systems
 (``chip_smoke.sensor_config("mono", small=True)``, the camera of
 ``tests/test_fisheye.py:44-60``) over 20 strafe frames (0.05 m/frame) on
-the same numpy images, beside the reference's sides of the module-level
-tests. The two-view initialization's 10-iteration BA leaves the map's
-scale undamped once LM's lambda has fallen (ROADMAP F24): on this scene the
+the same numpy images, the reference's first, and then both packages'
+sides of the module-level tests. The two-view initialization's
+10-iteration BA leaves the map's scale undamped once LM's lambda has
+fallen (ROADMAP F24): on this scene the
 reference's own result moves with the order of float additions (median
 point depth 2.35-4.97 at one cost between CPU thread counts in the port,
 and a map whose scale band no longer holds its points loses track). So the
@@ -33,9 +34,6 @@ port, ROADMAP F25); the stereo matcher without left patches exactly
 (matches) and within 1e-4 (right u, depth).
 """
 
-import concurrent.futures
-import json
-import multiprocessing
 import os
 
 import jax
@@ -44,44 +42,38 @@ import numpy as np
 import pytest
 import torch
 
-torch.set_num_threads(1)
-
-import chip_smoke  # noqa: E402
-from test_torch_fisheye import KB8, SMALL_KB8, J, T, close, npy, run, save_atomic, wait_for  # noqa: E402
-from test_torch_system import to_jax_config  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.io import synthetic as jsyn  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.models import camera as jcam  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.ops import orb as jorb  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.ops import pyramid as jpyr  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.ops import ransac as jr  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.ops import stereo as jst  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.ops import twoview as jtv  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.slam import frontend as jfe  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.slam.system import SlamSystem as JaxSlam  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.utils import lie as jlie  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.io import synthetic as tsyn  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.models import camera as tcam  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.ops import orb as torb  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.ops import ransac as tr  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.ops import stereo as tst  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.ops import twoview as ttv  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.slam import frontend as tfe  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.slam.system import SlamSystem as TorchSlam  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.utils import prng  # noqa: E402
+import chip_smoke
+from test_torch_fisheye import KB8, SMALL_KB8, J, T, close, npy, run
+from test_torch_system import to_jax_config
+from orb_slam3_detailed_comments_kor_tpu.io import synthetic as jsyn
+from orb_slam3_detailed_comments_kor_tpu.models import camera as jcam
+from orb_slam3_detailed_comments_kor_tpu.ops import orb as jorb
+from orb_slam3_detailed_comments_kor_tpu.ops import pyramid as jpyr
+from orb_slam3_detailed_comments_kor_tpu.ops import ransac as jr
+from orb_slam3_detailed_comments_kor_tpu.ops import stereo as jst
+from orb_slam3_detailed_comments_kor_tpu.ops import twoview as jtv
+from orb_slam3_detailed_comments_kor_tpu.slam import frontend as jfe
+from orb_slam3_detailed_comments_kor_tpu.slam.system import SlamSystem as JaxSlam
+from orb_slam3_detailed_comments_kor_tpu.utils import lie as jlie
+from orb_slam3_detailed_comments_kor_tpu_torch.io import synthetic as tsyn
+from orb_slam3_detailed_comments_kor_tpu_torch.models import camera as tcam
+from orb_slam3_detailed_comments_kor_tpu_torch.ops import orb as torb
+from orb_slam3_detailed_comments_kor_tpu_torch.ops import ransac as tr
+from orb_slam3_detailed_comments_kor_tpu_torch.ops import stereo as tst
+from orb_slam3_detailed_comments_kor_tpu_torch.ops import twoview as ttv
+from orb_slam3_detailed_comments_kor_tpu_torch.slam import frontend as tfe
+from orb_slam3_detailed_comments_kor_tpu_torch.slam.system import SlamSystem as TorchSlam
+from orb_slam3_detailed_comments_kor_tpu_torch.utils import prng
 
 MONO = dict(frames=20, speed=0.05)
 TUMVI_KB8 = np.array(chip_smoke.KB8_TUMVI, np.float32)
 
 
-def port_side(cfg, imgs, folder):
-    """The port's run in a process of its own (in the fixture's process it
-    would share the interpreter lock with the reference's tracing): it
-    waits for the reference's checkpoint right after the initializing
-    frame (init.npz, and the frame in init.json), resumes from it and runs
-    the rest of the images on the reference's extracted frames. Meanwhile
-    it computes the port's side of the KB8 loop verification."""
-    torch.set_num_threads(2)
-    sim3 = port_sim3()
+def port_run(cfg, imgs, init_path, start):
+    """The port's run: it resumes from the reference's checkpoint right
+    after the initializing frame (``init_path``; ``start`` is the next
+    frame) and runs the rest of the images on the reference's extracted
+    frames."""
     orb = cfg.orb
     frames = {img.__array_interface__["data"][0]: tfe.frame_from_numpy(npy(jfe.process_mono(
         J(img), n_features=orb.n_features, n_levels=orb.n_levels, scale=orb.scale_factor, cell=orb.cell_size)),
@@ -93,21 +85,11 @@ def port_side(cfg, imgs, folder):
         return saved_fe(img, **kw) if f is None else f
     tfe.process_mono = reference_frame
     try:
-        marker = os.path.join(folder, "init.json")
-        wait_for(marker, lambda: os.path.exists(marker + ".failed"))
-        with open(marker) as f:
-            start = json.load(f)["frame"] + 1
         system = TorchSlam(cfg, device="cpu")
-        system.load_map(os.path.join(folder, "init.npz"))
-        return dict(run(system, imgs, "mono", first=start), system=None, start=start, sim3=sim3)
+        system.load_map(init_path)
+        return dict(run(system, imgs, "mono", first=start), start=start)
     finally:
         tfe.process_mono = saved_fe
-
-
-def reference_programs():
-    """The reference's sides of the module-level tests (REFS), in a process
-    of their own, one compile at a time."""
-    return {name: npy(f()) for name, f in REFS.items()}
 
 
 @pytest.fixture(scope="module")
@@ -115,9 +97,8 @@ def kb8(tmp_path_factory):
     cfg = chip_smoke.sensor_config("mono", small=True)
     _, mo, _ = chip_smoke.render_sensor_sequence("mono", cfg, MONO["frames"], "cpu", speed=MONO["speed"])
     mo = [m.numpy() for m in mo]
-    folder = str(tmp_path_factory.mktemp("kb8"))
-    marker = os.path.join(folder, "init.json")
-    captured, saved = [], jtv.reconstruct_two_views_hf
+    init_path = os.path.join(str(tmp_path_factory.mktemp("kb8")), "init.npz")
+    captured, saved, init_at = [], jtv.reconstruct_two_views_hf, []
 
     def capture(*a, **k):
         args = (npy(a), npy(k))
@@ -126,30 +107,20 @@ def kb8(tmp_path_factory):
         return out
 
     def saver(i, system):
-        if system.state == 1 and not os.path.exists(marker):
-            save_atomic(system, os.path.join(folder, "init.npz"))
-            with open(marker, "w") as f:
-                json.dump({"frame": i}, f)
+        if system.state == 1 and not init_at:
+            system.save_map(init_path)
+            init_at.append(i)
 
     jtv.reconstruct_two_views_hf = capture
     saved_devices = jax.devices
     jax.devices = lambda *a: saved_devices(*a)[:1]  # the reference's one-device branches
-    spawn = multiprocessing.get_context("spawn")
     try:
-        with concurrent.futures.ProcessPoolExecutor(1, mp_context=spawn) as port, \
-                concurrent.futures.ProcessPoolExecutor(1, mp_context=spawn) as refs:
-            t_m, ref_out = port.submit(port_side, cfg, mo, folder), refs.submit(reference_programs)
-            try:
-                j_m = run(JaxSlam(to_jax_config(cfg)), mo, "mono", saver)
-            finally:
-                if not os.path.exists(marker):  # never leave the port's run waiting
-                    open(marker + ".failed", "w").close()
-            out = dict(j_m=j_m, t_m=t_m.result(), refs=ref_out.result(), captured=captured)
-            out["t_sim3"] = out["t_m"].pop("sim3")
+        j_m = run(JaxSlam(to_jax_config(cfg)), mo, "mono", saver)
     finally:
         jtv.reconstruct_two_views_hf = saved
         jax.devices = saved_devices
-    return out
+    return dict(j_m=j_m, t_m=port_run(cfg, mo, init_path, init_at[0] + 1), t_sim3=port_sim3(),
+                refs={name: npy(f()) for name, f in REFS.items()}, captured=captured)
 
 
 # ---------------------------------------------------------------------------
@@ -334,7 +305,7 @@ def test_sim3_ransac_reproj_kb8(kb8):
     inside the selection gate), and that hypothesis wins (ROADMAP F25)."""
     args, R_d = sim3_problem()
     ref = kb8["refs"]["sim3"]
-    got, by_idx = kb8["t_sim3"]  # the port's side, from the fixture's port process
+    got, by_idx = kb8["t_sim3"]  # the port's side, computed in the fixture
     np.testing.assert_array_equal(got["inliers"], ref["inliers"])
     assert int(got["n_inliers"]) == int(ref["n_inliers"]) > 0.6 * args[0].shape[0]
     for R, t in ((ref["R"], ref["t"]), (got["R"], got["t"])):
@@ -379,7 +350,7 @@ def test_stereo_matches_without_left_patches(kb8):
 
 
 # the reference computations of the tests above, run in the module
-# fixture's threads beside the system runs
+# fixture
 REFS = dict(**{f"render_{n}": (lambda n=n: ref_render(n)) for n in RENDERS}, sim3=ref_sim3,
             stereo_matches=ref_stereo_matches)
 

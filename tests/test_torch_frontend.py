@@ -19,16 +19,14 @@ import numpy as np
 import pytest
 import torch
 
-torch.set_num_threads(1)
-
-from orb_slam3_detailed_comments_kor_tpu.io import synthetic as jsyn  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.ops import orb as jorb  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.ops import pyramid as jpyr  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.ops import stereo as jstereo  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.ops import orb as torb  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.ops import pyramid as tpyr  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.ops import stereo as tstereo  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.slam import frontend as tfe  # noqa: E402
+from orb_slam3_detailed_comments_kor_tpu.io import synthetic as jsyn
+from orb_slam3_detailed_comments_kor_tpu.ops import orb as jorb
+from orb_slam3_detailed_comments_kor_tpu.ops import pyramid as jpyr
+from orb_slam3_detailed_comments_kor_tpu.ops import stereo as jstereo
+from orb_slam3_detailed_comments_kor_tpu_torch.ops import orb as torb
+from orb_slam3_detailed_comments_kor_tpu_torch.ops import pyramid as tpyr
+from orb_slam3_detailed_comments_kor_tpu_torch.ops import stereo as tstereo
+from orb_slam3_detailed_comments_kor_tpu_torch.slam import frontend as tfe
 
 H, W, FX, BASELINE = 240, 376, 230.0, 0.11
 BF = BASELINE * FX

@@ -33,7 +33,6 @@ the active map and a shelved one; the inertial weld on the reference's
 state: the inertial arrays exactly.
 """
 
-import concurrent.futures
 import copy
 import os
 import tempfile
@@ -44,33 +43,31 @@ import numpy as np
 import pytest
 import torch
 
-torch.set_num_threads(1)
-
-import chip_smoke  # noqa: E402
-import test_vi_ba  # noqa: E402
-from test_torch_system import to_jax_config  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.io import synthetic as jsyn  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.ops import imu as jimu  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.optim import ba as jba  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.optim import vi_ba as jvb  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.optim import vio as jvio  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.slam import inertial as jin  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.slam import loop_closing as jlc  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.slam import map_merging as jmm  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.slam.system import SlamSystem as JaxSlam  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.utils import lie as jlie  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.io import synthetic as tsyn  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.ops import imu as timu  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.optim import ba as tba  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.optim import factors as tfac  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.optim import vi_ba as tvb  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.optim import vio as tvio  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.parallel import dist_vi_ba as tdvb  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.slam import inertial as tin  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.slam import loop_closing as tlc  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.slam import map_merging as tmm  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.slam import map_state as tms  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.slam.system import SlamSystem as TorchSlam  # noqa: E402
+import chip_smoke
+import test_vi_ba
+from test_torch_system import to_jax_config
+from orb_slam3_detailed_comments_kor_tpu.io import synthetic as jsyn
+from orb_slam3_detailed_comments_kor_tpu.ops import imu as jimu
+from orb_slam3_detailed_comments_kor_tpu.optim import ba as jba
+from orb_slam3_detailed_comments_kor_tpu.optim import vi_ba as jvb
+from orb_slam3_detailed_comments_kor_tpu.optim import vio as jvio
+from orb_slam3_detailed_comments_kor_tpu.slam import inertial as jin
+from orb_slam3_detailed_comments_kor_tpu.slam import loop_closing as jlc
+from orb_slam3_detailed_comments_kor_tpu.slam import map_merging as jmm
+from orb_slam3_detailed_comments_kor_tpu.slam.system import SlamSystem as JaxSlam
+from orb_slam3_detailed_comments_kor_tpu.utils import lie as jlie
+from orb_slam3_detailed_comments_kor_tpu_torch.io import synthetic as tsyn
+from orb_slam3_detailed_comments_kor_tpu_torch.ops import imu as timu
+from orb_slam3_detailed_comments_kor_tpu_torch.optim import ba as tba
+from orb_slam3_detailed_comments_kor_tpu_torch.optim import factors as tfac
+from orb_slam3_detailed_comments_kor_tpu_torch.optim import vi_ba as tvb
+from orb_slam3_detailed_comments_kor_tpu_torch.optim import vio as tvio
+from orb_slam3_detailed_comments_kor_tpu_torch.parallel import dist_vi_ba as tdvb
+from orb_slam3_detailed_comments_kor_tpu_torch.slam import inertial as tin
+from orb_slam3_detailed_comments_kor_tpu_torch.slam import loop_closing as tlc
+from orb_slam3_detailed_comments_kor_tpu_torch.slam import map_merging as tmm
+from orb_slam3_detailed_comments_kor_tpu_torch.slam import map_state as tms
+from orb_slam3_detailed_comments_kor_tpu_torch.slam.system import SlamSystem as TorchSlam
 
 SI = chip_smoke.SMALL_SI
 CAPTURED = ("local_vi_ba_step", "initialize_imu", "store_preintegration", "advance_imu")
@@ -294,27 +291,18 @@ def si():
     # its one-device inertial GBA (system.py:1281)
     saved_devices = jax.devices
     jax.devices = lambda *a: saved_devices(*a)[:1]
-    torch.set_num_threads(4)
     try:
-        # the two runs and the reference's standalone programs overlap (each
-        # is deterministic); then the reference's programs on its final state
-        with concurrent.futures.ThreadPoolExecutor(3) as pool:
-            j = pool.submit(run, jax_system, imgs, imu)
-            t = pool.submit(run, torch_system, imgs, imu)
-            prob = pool.submit(vi_problem)
-            j, t, prob = j.result(), t.result(), prob.result()
-        with concurrent.futures.ThreadPoolExecutor(3) as pool:
-            jobs = {"standalone": pool.submit(standalone_references, prob)}  # the longest first
-            jobs.update({name: pool.submit(fn, j, cfg) for name, fn in FINAL_STATE_REFERENCES.items()})
-            ref = {name: job.result() for name, job in jobs.items()}
-        ref.update(ref.pop("standalone"))
+        # the two runs, then the reference's programs on seeded inputs and
+        # on its final state
+        j, t = run(jax_system, imgs, imu), run(torch_system, imgs, imu)
+        ref = standalone_references(vi_problem())
+        ref.update({name: fn(j, cfg) for name, fn in FINAL_STATE_REFERENCES.items()})
         return j, t, gt, cfg, captured, ref
     finally:
         for name in CAPTURED:
             setattr(jin, name, saved[name])
         jvio.vio_frame_step = saved_vio
         jax.devices = saved_devices
-        torch.set_num_threads(1)
 
 
 def test_same_keyframes_init_and_stats(si):

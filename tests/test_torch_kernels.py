@@ -14,19 +14,17 @@ import numpy as np
 import pytest
 import torch
 
-torch.set_num_threads(1)
-
-from orb_slam3_detailed_comments_kor_tpu.ops import matching as jmatch  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.ops import pallas_fast as jpf  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.ops import pallas_gather as jpg  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.ops import pallas_matching as jpm  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.ops import select as jsel  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.ops import cuda_fast  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.ops import cuda_gather  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.ops import cuda_matching  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.ops import orb as torb  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.ops import pyramid as tpyr  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.ops import select as tsel  # noqa: E402
+from orb_slam3_detailed_comments_kor_tpu.ops import matching as jmatch
+from orb_slam3_detailed_comments_kor_tpu.ops import pallas_fast as jpf
+from orb_slam3_detailed_comments_kor_tpu.ops import pallas_gather as jpg
+from orb_slam3_detailed_comments_kor_tpu.ops import pallas_matching as jpm
+from orb_slam3_detailed_comments_kor_tpu.ops import select as jsel
+from orb_slam3_detailed_comments_kor_tpu_torch.ops import cuda_fast
+from orb_slam3_detailed_comments_kor_tpu_torch.ops import cuda_gather
+from orb_slam3_detailed_comments_kor_tpu_torch.ops import cuda_matching
+from orb_slam3_detailed_comments_kor_tpu_torch.ops import orb as torb
+from orb_slam3_detailed_comments_kor_tpu_torch.ops import pyramid as tpyr
+from orb_slam3_detailed_comments_kor_tpu_torch.ops import select as tsel
 
 H, W, NL, CELL = 240, 376, 8, 24
 

@@ -8,10 +8,8 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-torch.set_num_threads(1)
-
-from orb_slam3_detailed_comments_kor_tpu.utils import lie as jlie  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.utils import lie as tlie  # noqa: E402
+from orb_slam3_detailed_comments_kor_tpu.utils import lie as jlie
+from orb_slam3_detailed_comments_kor_tpu_torch.utils import lie as tlie
 
 
 def _rotvecs(seed):

@@ -45,34 +45,30 @@ with a tied row and above its threshold) the candidate exactly, the score
 within 1e-6; the merge gate's verdict on the reference's six cases.
 """
 
-import concurrent.futures
 import copy
 import os
 import tempfile
-import threading
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-torch.set_num_threads(1)
-
-import chip_smoke  # noqa: E402
-from test_torch_system import to_jax_config  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.eval import ate  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.io import synthetic as jsyn  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.slam import frontend as jfe  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.slam import loop_closing as jlc  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.slam import map_merging as jmm  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.slam import map_state as jms  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.slam.system import SlamSystem as JaxSlam  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.utils import lie as jlie  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.slam import frontend as tfe  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.slam import loop_closing as tlc  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.slam import map_merging as tmm  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.slam import map_state as tms  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.slam.system import SlamSystem as TorchSlam  # noqa: E402
+import chip_smoke
+from test_torch_system import to_jax_config
+from orb_slam3_detailed_comments_kor_tpu.eval import ate
+from orb_slam3_detailed_comments_kor_tpu.io import synthetic as jsyn
+from orb_slam3_detailed_comments_kor_tpu.slam import frontend as jfe
+from orb_slam3_detailed_comments_kor_tpu.slam import loop_closing as jlc
+from orb_slam3_detailed_comments_kor_tpu.slam import map_merging as jmm
+from orb_slam3_detailed_comments_kor_tpu.slam import map_state as jms
+from orb_slam3_detailed_comments_kor_tpu.slam.system import SlamSystem as JaxSlam
+from orb_slam3_detailed_comments_kor_tpu.utils import lie as jlie
+from orb_slam3_detailed_comments_kor_tpu_torch.slam import frontend as tfe
+from orb_slam3_detailed_comments_kor_tpu_torch.slam import loop_closing as tlc
+from orb_slam3_detailed_comments_kor_tpu_torch.slam import map_merging as tmm
+from orb_slam3_detailed_comments_kor_tpu_torch.slam import map_state as tms
+from orb_slam3_detailed_comments_kor_tpu_torch.slam.system import SlamSystem as TorchSlam
 
 SC = chip_smoke.SMALL_CLOSURE
 CORES = ("_detect_core", "_verify_core_reproj", "_refine_hyp_core", "_correct_core")
@@ -122,8 +118,9 @@ def run(system, imgs, inject, handoff):
     """Feed the pairs, injecting the drift at the turn; record the frames
     that insert a keyframe and the frames whose slice corrected the map.
     Then flush, hand the reference's state over through a checkpoint
-    (``handoff``: ("save" or "load", path, event)), and run the merge
-    phase: a timestamp gap and replayed frames until the map merged."""
+    (``handoff``: ("save" or "load", path); the reference runs first), and
+    run the merge phase: a timestamp gap and replayed frames until the map
+    merged."""
     kf_at, corrected, at_closure = [], [], None
     for i, (il, ir) in enumerate(imgs):
         if i == SC["inject_at"]:
@@ -146,14 +143,12 @@ def run(system, imgs, inject, handoff):
     # apart (F15): the port continues from the reference's state, loaded
     # from the reference's checkpoint, so that the merge phase starts from
     # the same map
-    mode, path, ready = handoff
+    mode, path = handoff
     system.flush_decisions()
     out["key_at_handoff"] = np.asarray(system._loop_key).astype(np.int64)
     if mode == "save":
         system.save_map(path)
-        ready.set()
     else:
-        assert ready.wait(600)
         system.load_map(path)
     # the Atlas merge: the gap shelves the map (>= 5 keyframes) and a fresh
     # map starts; the replayed frames revisit the shelved map until the
@@ -259,17 +254,12 @@ def loops():
     tmm.merge_into_shelved = port_weld
     tfe.process_stereo = port_frontend
     jlc.global_ba = single_device_gba
-    torch.set_num_threads(4)
     tmp = tempfile.mkdtemp()
-    path, ready = os.path.join(tmp, "reference.npz"), threading.Event()
+    path = os.path.join(tmp, "reference.npz")
     try:
-        # the two runs are independent up to the hand-over: overlap them
-        # (each is deterministic)
-        with concurrent.futures.ThreadPoolExecutor(2) as pool:
-            j = pool.submit(run, jax_system, [(np.array(a), np.array(b)) for a, b in imgs], jax_inject,
-                            ("save", path, ready))
-            t = pool.submit(run, torch_system, imgs, chip_smoke.inject_drift, ("load", path, ready))
-            return j.result(), t.result(), ts, cfg, captured, frames, imgs
+        j = run(jax_system, [(np.array(a), np.array(b)) for a, b in imgs], jax_inject, ("save", path))
+        t = run(torch_system, imgs, chip_smoke.inject_drift, ("load", path))
+        return j, t, ts, cfg, captured, frames, imgs
     finally:
         for name in CORES:
             setattr(jlc, name, saved[name])
@@ -278,7 +268,6 @@ def loops():
         tmm.merge_into_shelved = saved_port_weld
         tfe.process_stereo = saved_fe
         jlc.global_ba = saved_global
-        torch.set_num_threads(1)
         if os.path.exists(path):
             os.remove(path)
         os.rmdir(tmp)

@@ -23,22 +23,20 @@ import numpy as np
 import pytest
 import torch
 
-torch.set_num_threads(1)
-
-import test_torch_ba as tba_test  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.models import vocabulary as jvoc  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.ops import matching as jmatch  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.ops import ransac as jr  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.optim import ba as jba  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.optim import pose_graph as jpg  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.utils import lie as jlie  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.models import vocabulary as tvoc  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.ops import matching as tmatch  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.ops import ransac as tr  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.optim import ba as tba  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.optim import pose_graph as tpg  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.utils import lie as tlie  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.utils import prng  # noqa: E402
+import test_torch_ba as tba_test
+from orb_slam3_detailed_comments_kor_tpu.models import vocabulary as jvoc
+from orb_slam3_detailed_comments_kor_tpu.ops import matching as jmatch
+from orb_slam3_detailed_comments_kor_tpu.ops import ransac as jr
+from orb_slam3_detailed_comments_kor_tpu.optim import ba as jba
+from orb_slam3_detailed_comments_kor_tpu.optim import pose_graph as jpg
+from orb_slam3_detailed_comments_kor_tpu.utils import lie as jlie
+from orb_slam3_detailed_comments_kor_tpu_torch.models import vocabulary as tvoc
+from orb_slam3_detailed_comments_kor_tpu_torch.ops import matching as tmatch
+from orb_slam3_detailed_comments_kor_tpu_torch.ops import ransac as tr
+from orb_slam3_detailed_comments_kor_tpu_torch.optim import ba as tba
+from orb_slam3_detailed_comments_kor_tpu_torch.optim import pose_graph as tpg
+from orb_slam3_detailed_comments_kor_tpu_torch.utils import lie as tlie
+from orb_slam3_detailed_comments_kor_tpu_torch.utils import prng
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CAM = np.array([458.0, 458.0, 376.0, 240.0], np.float32)

@@ -21,19 +21,17 @@ import numpy as np
 import pytest
 import torch
 
-torch.set_num_threads(1)
-
-from orb_slam3_detailed_comments_kor_tpu.eval import ate as jate  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.slam import map_merging as jmm  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.slam import map_state as jms  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.slam import system as jsys  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.slam import tracking as jtr  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.eval import ate as tate  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.slam import map_merging as tmm  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.slam import map_state as tms  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.slam import system as tsys  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.slam import tracking as ttr  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.utils import lie as tlie  # noqa: E402
+from orb_slam3_detailed_comments_kor_tpu.eval import ate as jate
+from orb_slam3_detailed_comments_kor_tpu.slam import map_merging as jmm
+from orb_slam3_detailed_comments_kor_tpu.slam import map_state as jms
+from orb_slam3_detailed_comments_kor_tpu.slam import system as jsys
+from orb_slam3_detailed_comments_kor_tpu.slam import tracking as jtr
+from orb_slam3_detailed_comments_kor_tpu_torch.eval import ate as tate
+from orb_slam3_detailed_comments_kor_tpu_torch.slam import map_merging as tmm
+from orb_slam3_detailed_comments_kor_tpu_torch.slam import map_state as tms
+from orb_slam3_detailed_comments_kor_tpu_torch.slam import system as tsys
+from orb_slam3_detailed_comments_kor_tpu_torch.slam import tracking as ttr
+from orb_slam3_detailed_comments_kor_tpu_torch.utils import lie as tlie
 
 CAM = np.array([230.0, 230.0, 188.0, 120.0], np.float32)
 BF = 0.11 * 230.0

@@ -1,8 +1,8 @@
 """The port's monocular and monocular-inertial paths against the JAX
 reference on the CPU.
 
-One module fixture runs four ``SlamSystem``s in threads, both packages on
-the same numpy images:
+One module fixture runs four ``SlamSystem``s, the reference's two first,
+both packages on the same numpy images:
 
 - ``MONOCULAR``: ``chip_smoke.mono_config(small=True)``, which is
   ``tests/test_slam_e2e.small_config()`` (240x376, 600 features) with a
@@ -62,9 +62,7 @@ as the captured calls; a mono map's checkpoint: every array exactly, both
 ways, and one frame tracked after it within 2e-3 m / 1e-3 rad.
 """
 
-import concurrent.futures
 import dataclasses
-import threading
 
 import jax
 import jax.numpy as jnp
@@ -72,32 +70,30 @@ import numpy as np
 import pytest
 import torch
 
-torch.set_num_threads(1)
-
-import chip_smoke  # noqa: E402
-from test_slam_e2e import FX, H, W, small_config  # noqa: E402
-from test_torch_system import assert_loaded, to_jax_config  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu import config as jcfg  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.models import camera as jcam  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.ops import twoview as jtv  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.slam import frontend as jfe  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.slam import inertial as jin  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.slam import loop_closing as jlc  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.slam import map_merging as jmm  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.slam import map_state as jms  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.slam import tracking as jtr  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.slam.system import SlamSystem as JaxSlam  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.utils import lie as jlie  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.config import SensorType  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.models import camera as tcam  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.ops import twoview as ttv  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.slam import frontend as tfe  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.slam import inertial as tin  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.slam import loop_closing as tlc  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.slam import map_merging as tmm  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.slam import map_state as tms  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.slam import tracking as ttr  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.slam.system import SlamSystem as TorchSlam  # noqa: E402
+import chip_smoke
+from test_slam_e2e import FX, H, W, small_config
+from test_torch_system import assert_loaded, to_jax_config
+from orb_slam3_detailed_comments_kor_tpu import config as jcfg
+from orb_slam3_detailed_comments_kor_tpu.models import camera as jcam
+from orb_slam3_detailed_comments_kor_tpu.ops import twoview as jtv
+from orb_slam3_detailed_comments_kor_tpu.slam import frontend as jfe
+from orb_slam3_detailed_comments_kor_tpu.slam import inertial as jin
+from orb_slam3_detailed_comments_kor_tpu.slam import loop_closing as jlc
+from orb_slam3_detailed_comments_kor_tpu.slam import map_merging as jmm
+from orb_slam3_detailed_comments_kor_tpu.slam import map_state as jms
+from orb_slam3_detailed_comments_kor_tpu.slam import tracking as jtr
+from orb_slam3_detailed_comments_kor_tpu.slam.system import SlamSystem as JaxSlam
+from orb_slam3_detailed_comments_kor_tpu.utils import lie as jlie
+from orb_slam3_detailed_comments_kor_tpu_torch.config import SensorType
+from orb_slam3_detailed_comments_kor_tpu_torch.models import camera as tcam
+from orb_slam3_detailed_comments_kor_tpu_torch.ops import twoview as ttv
+from orb_slam3_detailed_comments_kor_tpu_torch.slam import frontend as tfe
+from orb_slam3_detailed_comments_kor_tpu_torch.slam import inertial as tin
+from orb_slam3_detailed_comments_kor_tpu_torch.slam import loop_closing as tlc
+from orb_slam3_detailed_comments_kor_tpu_torch.slam import map_merging as tmm
+from orb_slam3_detailed_comments_kor_tpu_torch.slam import map_state as tms
+from orb_slam3_detailed_comments_kor_tpu_torch.slam import tracking as ttr
+from orb_slam3_detailed_comments_kor_tpu_torch.slam.system import SlamSystem as TorchSlam
 
 MONO = dict(chip_smoke.SMALL_MONO, fps=chip_smoke.FPS)
 MI = chip_smoke.SMALL_MI
@@ -214,19 +210,22 @@ def mono():
         return saved_fe(img, **kw) if f is None else f
     captured = {name: [] for names in CAPTURED.values() for name in names}
     saved = {(mod, name): getattr(mod, name) for mod, names in CAPTURED.items() for name in names}
-    which = threading.local()
+    which = {"run": None}
 
     def capture(name, fn):
         def wrapper(*a, **k):
             args = (npy(a), npy(k))  # before the call: full_mono_step donates its map
             out = fn(*a, **k)
-            captured[name].append((getattr(which, "run", None),) + args + (npy(out),))
+            captured[name].append((which["run"],) + args + (npy(out),))
             return out
         return wrapper
 
     def tagged(tag, fn, *a, **k):
-        which.run = tag
-        return fn(*a, **k)
+        which["run"] = tag
+        try:
+            return fn(*a, **k)
+        finally:
+            which["run"] = None
 
     for (mod, name), fn in saved.items():
         setattr(mod, name, capture(name, fn))
@@ -235,28 +234,28 @@ def mono():
     # GBA takes its one-device branch, as on the card
     saved_devices = jax.devices
     jax.devices = lambda *a: saved_devices(*a)[:1]
-    torch.set_num_threads(2)
     try:
-        # the reference's runs start first; the port's once its frames are there
-        with concurrent.futures.ThreadPoolExecutor(4) as pool:
-            jobs = dict(
-                j_mi=pool.submit(tagged, "mi", run, JaxSlam(to_jax_config(mcfg)), mi_imgs, imu, MI["fps"]),
-                j=pool.submit(tagged, "mono", run, JaxSlam(to_jax_config(cfg)), imgs),
-            )
-            for part in [pool.submit(extract, x) for x in (mi_imgs, imgs)]:
-                ref_frames.update(part.result())
-            jobs.update(
-                t_mi=pool.submit(run, TorchSlam(mcfg, device="cpu"), mi_imgs, imu, MI["fps"]),
-                t=pool.submit(run, TorchSlam(cfg, device="cpu"), imgs),
-            )
-            jobs["correction_sim3"] = pool.submit(lambda: ref_correction_sim3(jobs["j"].result()))
-            out = {k: v.result() for k, v in jobs.items()}
+        # the reference's runs, then the port's on the reference's frames
+        out = dict(j_mi=tagged("mi", run, JaxSlam(to_jax_config(mcfg)), mi_imgs, imu, MI["fps"]),
+                   j=tagged("mono", run, JaxSlam(to_jax_config(cfg)), imgs))
+        for x in (mi_imgs, imgs):
+            ref_frames.update(extract(x))
+        out["t_mi"] = run(TorchSlam(mcfg, device="cpu"), mi_imgs, imu, MI["fps"])
+        # the monocular map carries the order of float additions to
+        # millimetres (F24), and the port's sums follow torch's thread count:
+        # this run keeps the two threads its tolerances were set at
+        threads = torch.get_num_threads()
+        torch.set_num_threads(2)
+        try:
+            out["t"] = run(TorchSlam(cfg, device="cpu"), imgs)
+        finally:
+            torch.set_num_threads(threads)
+        out["correction_sim3"] = ref_correction_sim3(out["j"])
     finally:
         for (mod, name), fn in saved.items():
             setattr(mod, name, fn)
         tfe.process_mono = saved_fe
         jax.devices = saved_devices
-        torch.set_num_threads(1)
     out.update(cfg=cfg, mcfg=mcfg, ts=ts, gt=gt, captured=captured, imgs=imgs)
     return out
 
@@ -537,14 +536,12 @@ def two_view_problem(problem):
 
 @pytest.fixture(scope="module")
 def two_view_refs():
-    """The reference's answers to the two-view problems, compiled and run
-    side by side."""
+    """The reference's answers to the two-view problems."""
     def solve(problem):
         name, ra, rb, valid, key = two_view_problem(problem)
         return getattr(jtv, name)(ra, rb, valid, key, inlier_th=1e-8)
 
-    with concurrent.futures.ThreadPoolExecutor(len(TWO_VIEW_PROBLEMS)) as pool:
-        return dict(zip(TWO_VIEW_PROBLEMS, pool.map(solve, TWO_VIEW_PROBLEMS)))
+    return {problem: solve(problem) for problem in TWO_VIEW_PROBLEMS}
 
 
 @pytest.mark.parametrize("problem", TWO_VIEW_PROBLEMS)
@@ -570,10 +567,7 @@ def mono_maps():
     and one tracked frame."""
     cfg = mono_config()
     imgs, _ = mono_images(6)
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        j = pool.submit(run, JaxSlam(to_jax_config(cfg)), imgs[:5])
-        t = pool.submit(run, TorchSlam(cfg, device="cpu"), imgs[:5])
-        j, t = j.result(), t.result()
+    j, t = run(JaxSlam(to_jax_config(cfg)), imgs[:5]), run(TorchSlam(cfg, device="cpu"), imgs[:5])
     return dict(jax=j["system"], port=t["system"], cfg=cfg, next=imgs[5])
 
 

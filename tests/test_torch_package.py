@@ -15,10 +15,8 @@ import sys
 import pytest
 import torch
 
-torch.set_num_threads(1)
-
-from orb_slam3_detailed_comments_kor_tpu import config as jcfg  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch import config as tcfg  # noqa: E402
+from orb_slam3_detailed_comments_kor_tpu import config as jcfg
+from orb_slam3_detailed_comments_kor_tpu_torch import config as tcfg
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = "orb_slam3_detailed_comments_kor_tpu_torch"

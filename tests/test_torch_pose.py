@@ -12,10 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-torch.set_num_threads(1)
-
-from orb_slam3_detailed_comments_kor_tpu.optim import ba as jba  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.optim import ba as tba  # noqa: E402
+from orb_slam3_detailed_comments_kor_tpu.optim import ba as jba
+from orb_slam3_detailed_comments_kor_tpu_torch.optim import ba as tba
 
 FX, BF = 230.0, 0.11 * 230.0
 CAM = np.array([FX, FX, 188.0, 120.0], np.float32)

@@ -12,12 +12,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
-torch.set_num_threads(1)
-
-from orb_slam3_detailed_comments_kor_tpu.ops import pyramid as jpyr  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.ops import pyramid as tpyr  # noqa: E402
+from orb_slam3_detailed_comments_kor_tpu.ops import pyramid as jpyr
+from orb_slam3_detailed_comments_kor_tpu_torch.ops import pyramid as tpyr
 
 
 def _jax_pipeline_weights(pairs):

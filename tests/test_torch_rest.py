@@ -31,24 +31,22 @@ import numpy as np
 import pytest
 import torch
 
-torch.set_num_threads(1)
-
-from jax._src.image import scale as jscale  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.models import vocabulary as jvoc  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.ops import fast as jfast  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.ops import matching as jmatch  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.ops import orb as jorb  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.ops import pyramid as jpyr  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.ops import stereo as jstereo  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.utils import lie as jlie  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.io import synthetic as tsyn  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.models import vocabulary as tvoc  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.ops import fast as tfast  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.ops import matching as tmatch  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.ops import orb as torb  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.ops import pyramid as tpyr  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.ops import stereo as tstereo  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.utils import lie as tlie  # noqa: E402
+from jax._src.image import scale as jscale
+from orb_slam3_detailed_comments_kor_tpu.models import vocabulary as jvoc
+from orb_slam3_detailed_comments_kor_tpu.ops import fast as jfast
+from orb_slam3_detailed_comments_kor_tpu.ops import matching as jmatch
+from orb_slam3_detailed_comments_kor_tpu.ops import orb as jorb
+from orb_slam3_detailed_comments_kor_tpu.ops import pyramid as jpyr
+from orb_slam3_detailed_comments_kor_tpu.ops import stereo as jstereo
+from orb_slam3_detailed_comments_kor_tpu.utils import lie as jlie
+from orb_slam3_detailed_comments_kor_tpu_torch.io import synthetic as tsyn
+from orb_slam3_detailed_comments_kor_tpu_torch.models import vocabulary as tvoc
+from orb_slam3_detailed_comments_kor_tpu_torch.ops import fast as tfast
+from orb_slam3_detailed_comments_kor_tpu_torch.ops import matching as tmatch
+from orb_slam3_detailed_comments_kor_tpu_torch.ops import orb as torb
+from orb_slam3_detailed_comments_kor_tpu_torch.ops import pyramid as tpyr
+from orb_slam3_detailed_comments_kor_tpu_torch.ops import stereo as tstereo
+from orb_slam3_detailed_comments_kor_tpu_torch.utils import lie as tlie
 
 H, W, FX, BASELINE = 240, 376, 230.0, 0.11
 BF = BASELINE * FX

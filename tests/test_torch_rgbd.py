@@ -1,7 +1,7 @@
 """The port's RGB-D path against the JAX reference on the CPU.
 
-One module fixture runs both packages' RGB-D ``SlamSystem``s in two
-threads on the same numpy images and depth maps:
+One module fixture runs both packages' RGB-D ``SlamSystem``s, one after
+the other, on the same numpy images and depth maps:
 ``chip_smoke.sensor_config("rgbd", small=True)``, which is
 ``tests/test_slam_e2e.small_config()`` (240x376, 600 features) with an
 RGBD sensor and synchronous decisions, over the strafe of
@@ -18,7 +18,6 @@ within 1e-3 px. ``full_rgbd_step`` on the reference's captured inputs: the
 track association and the inlier count exactly, the pose within 1e-4.
 """
 
-import concurrent.futures
 import dataclasses
 
 import jax.numpy as jnp
@@ -26,20 +25,18 @@ import numpy as np
 import pytest
 import torch
 
-torch.set_num_threads(1)
-
-import chip_smoke  # noqa: E402
-from test_slam_e2e import small_config  # noqa: E402
-from test_torch_system import to_jax_config  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu import config as jcfg  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.slam import frontend as jfe  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.slam import tracking as jtr  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.slam.system import SlamSystem as JaxSlam  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.config import SensorType  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.slam import frontend as tfe  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.slam import map_state as tms  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.slam import tracking as ttr  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.slam.system import SlamSystem as TorchSlam  # noqa: E402
+import chip_smoke
+from test_slam_e2e import small_config
+from test_torch_system import to_jax_config
+from orb_slam3_detailed_comments_kor_tpu import config as jcfg
+from orb_slam3_detailed_comments_kor_tpu.slam import frontend as jfe
+from orb_slam3_detailed_comments_kor_tpu.slam import tracking as jtr
+from orb_slam3_detailed_comments_kor_tpu.slam.system import SlamSystem as JaxSlam
+from orb_slam3_detailed_comments_kor_tpu_torch.config import SensorType
+from orb_slam3_detailed_comments_kor_tpu_torch.slam import frontend as tfe
+from orb_slam3_detailed_comments_kor_tpu_torch.slam import map_state as tms
+from orb_slam3_detailed_comments_kor_tpu_torch.slam import tracking as ttr
+from orb_slam3_detailed_comments_kor_tpu_torch.slam.system import SlamSystem as TorchSlam
 
 FRAMES = 16
 DIST = (-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05)
@@ -97,15 +94,11 @@ def rgbd():
         return out
 
     jtr.full_rgbd_step = capture
-    torch.set_num_threads(2)
     try:
-        with concurrent.futures.ThreadPoolExecutor(2) as pool:
-            j = pool.submit(run, JaxSlam(to_jax_config(cfg)), frames)
-            t = pool.submit(run, TorchSlam(cfg, device="cpu"), frames)
-            out = dict(j=j.result(), t=t.result())
+        out = dict(j=run(JaxSlam(to_jax_config(cfg)), frames))
     finally:
         jtr.full_rgbd_step = saved
-        torch.set_num_threads(1)
+    out["t"] = run(TorchSlam(cfg, device="cpu"), frames)
     out.update(cfg=cfg, ts=ts, frames=frames, captured=captured)
     return out
 

@@ -12,11 +12,10 @@ reference's libpng build, the port's zlib-only one, bit-equal on these
 files) and rectify them with the same maps, so they get the same float
 images; both
 build their configuration from the settings file (the capacity and
-tracking defaults). The reference's runner runs in a spawned process with
-the CPU's asynchronous dispatch off, every deferred read counted as ready
-once computed and one JAX device, so that every deferred decision read is
-ready at its first chance, as the port's CPU reads are (F16); the port's
-runs in this process with ``device="cpu"``.
+tracking defaults). The reference's runner runs first, with one JAX
+device and every deferred read counted as ready once computed, so that
+every deferred decision read is ready at its first chance, as the port's
+CPU reads are (F16); then the port's, with ``device="cpu"``.
 The port's runner also runs once in ``rgbd`` mode on a TUM RGB-D layout
 of RGBD_FRAMES strafe frames (8-bit images, 16-bit depth maps at 5000 per
 metre, absolute TUM stamps).
@@ -28,17 +27,13 @@ decimals plus those tolerances; the RGB-D run's ATE below the reference's
 own runner test's bound, 0.05 m (``tests/test_run_dataset.py``).
 """
 
-import concurrent.futures
-import multiprocessing
 import os
 
 import numpy as np
 import pytest
 import torch
 
-torch.set_num_threads(1)
-
-import chip_smoke  # noqa: E402
+import chip_smoke
 
 SMALL = chip_smoke.SMALL_EUROC
 TUM_T0, RGBD_FRAMES = 1305031102.175304, 8
@@ -54,24 +49,26 @@ def _summary(rec, out_path):
 
 
 def jax_runner(argv, out_path):
-    """The JAX package's runner, in a process of its own: asynchronous
-    dispatch off, one device, and every deferred read counted as ready
-    once computed (under load a batched decision read was otherwise found
-    not ready at its first chance, so the reference's keyframes came a
-    frame late; tools/jax_sensor_ref.py's ``first_chance_reads``)."""
+    """The JAX package's runner with one device and every deferred read
+    counted as ready once computed (under load a batched decision read was
+    otherwise found not ready at its first chance, so the reference's
+    keyframes came a frame late; tools/jax_sensor_ref.py's
+    ``first_chance_reads``)."""
     import jax
     from jax._src import array as jarray
 
-    jax.config.update("jax_cpu_enable_async_dispatch", False)
-    jarray.ArrayImpl.is_ready = lambda self: self.block_until_ready() is not None
-    saved = jax.devices
-    jax.devices = lambda *a: saved(*a)[:1]
     from examples import run_dataset
     from orb_slam3_detailed_comments_kor_tpu.slam import system as jsys
 
-    with chip_smoke.keyframes_recorded(jsys.SlamSystem, "track_stereo", {}) as rec:
-        run_dataset.main(argv + ["--out", out_path])
-    return _summary(rec, out_path)
+    saved_ready, saved_devices = jarray.ArrayImpl.is_ready, jax.devices
+    jarray.ArrayImpl.is_ready = lambda self: self.block_until_ready() is not None
+    jax.devices = lambda *a: saved_devices(*a)[:1]
+    try:
+        with chip_smoke.keyframes_recorded(jsys.SlamSystem, "track_stereo", {}) as rec:
+            run_dataset.main(argv + ["--out", out_path])
+        return _summary(rec, out_path)
+    finally:
+        jarray.ArrayImpl.is_ready, jax.devices = saved_ready, saved_devices
 
 
 @pytest.fixture(scope="module")
@@ -82,21 +79,14 @@ def runs(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("run_dataset"))
     seq, settings, gt_path, _ = chip_smoke.small_euroc_sequence(os.path.join(root, "euroc"))
     argv = ["--mode", "stereo", "--dataset", "euroc", "--seq", seq, "--settings", settings, "--gt", gt_path]
-    spawn = multiprocessing.get_context("spawn")
-    with concurrent.futures.ProcessPoolExecutor(1, mp_context=spawn) as pool, \
-            concurrent.futures.ProcessPoolExecutor(1, mp_context=spawn) as rgbd_pool:
-        ref = pool.submit(jax_runner, argv, os.path.join(root, "jax_traj.csv"))
-        # the port's RGB-D run on a TUM RGB-D layout in a process of its own,
-        # its stereo run on the EuRoC layout here meanwhile
-        rgbd = rgbd_pool.submit(rgbd_run, root)
-        out_path = os.path.join(root, "port_traj.csv")
-        with chip_smoke.keyframes_recorded(tsys.SlamSystem, "track_stereo", {}) as rec:
-            res = run_dataset.main(argv + ["--out", out_path], device="cpu")
-        port = _summary(rec, out_path)
-        port.update(decoder=res["decoder"], ate_m=res["ate_m"], device=res["slam"].device.type,
-                    **{k: res[k] for k in ("frame_ms", "feed_ms", "track_ms")})
-        jax_out, rgbd = ref.result(), rgbd.result()
-    return port, jax_out, rgbd
+    jax_out = jax_runner(argv, os.path.join(root, "jax_traj.csv"))
+    out_path = os.path.join(root, "port_traj.csv")
+    with chip_smoke.keyframes_recorded(tsys.SlamSystem, "track_stereo", {}) as rec:
+        res = run_dataset.main(argv + ["--out", out_path], device="cpu")
+    port = _summary(rec, out_path)
+    port.update(decoder=res["decoder"], ate_m=res["ate_m"], device=res["slam"].device.type,
+                **{k: res[k] for k in ("frame_ms", "feed_ms", "track_ms")})
+    return port, jax_out, rgbd_run(root)
 
 
 def rgbd_run(root):
@@ -109,7 +99,6 @@ def rgbd_run(root):
     from orb_slam3_detailed_comments_kor_tpu_torch.io import trajectory as traj_io
     from orb_slam3_detailed_comments_kor_tpu_torch.models import camera as cam_mod
 
-    torch.set_num_threads(1)
     cfg = chip_smoke.si_config(small=True)
     tum = os.path.join(root, "tum")
     os.makedirs(os.path.join(tum, "rgb"))

@@ -19,19 +19,17 @@ import numpy as np
 import pytest
 import torch
 
-torch.set_num_threads(1)
-
-import __graft_entry__ as graft  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.io import synthetic as jsyn  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.models import camera as jcam  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.ops import orb as jorb  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.slam import map_state as jms  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.slam import tracking as jtr  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.io import synthetic as tsyn  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.slam import frontend as tfe  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.slam import map_state as tms  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.slam import tracking as ttr  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.utils import lie as tlie  # noqa: E402
+import __graft_entry__ as graft
+from orb_slam3_detailed_comments_kor_tpu.io import synthetic as jsyn
+from orb_slam3_detailed_comments_kor_tpu.models import camera as jcam
+from orb_slam3_detailed_comments_kor_tpu.ops import orb as jorb
+from orb_slam3_detailed_comments_kor_tpu.slam import map_state as jms
+from orb_slam3_detailed_comments_kor_tpu.slam import tracking as jtr
+from orb_slam3_detailed_comments_kor_tpu_torch.io import synthetic as tsyn
+from orb_slam3_detailed_comments_kor_tpu_torch.slam import frontend as tfe
+from orb_slam3_detailed_comments_kor_tpu_torch.slam import map_state as tms
+from orb_slam3_detailed_comments_kor_tpu_torch.slam import tracking as ttr
+from orb_slam3_detailed_comments_kor_tpu_torch.utils import lie as tlie
 
 N_TRACKED = 3
 SPEED = 0.03

@@ -23,7 +23,6 @@ frames with no keyframe inserted, poses within 2e-3 m / 1e-3 rad; and the
 localization-mode VO fallback on one frame pair of that run, within 1e-4.
 """
 
-import concurrent.futures
 import dataclasses
 
 import jax.numpy as jnp
@@ -31,17 +30,15 @@ import numpy as np
 import pytest
 import torch
 
-torch.set_num_threads(1)
-
-import chip_smoke  # noqa: E402
-import test_slam_e2e as e2e  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu import config as jcfg  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.eval import ate  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.io import synthetic as jsyn  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.slam.system import SlamSystem as JaxSlam  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.slam import frontend as tfe  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.slam import map_state as tms  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.slam.system import SlamSystem as TorchSlam  # noqa: E402
+import chip_smoke
+import test_slam_e2e as e2e
+from orb_slam3_detailed_comments_kor_tpu import config as jcfg
+from orb_slam3_detailed_comments_kor_tpu.eval import ate
+from orb_slam3_detailed_comments_kor_tpu.io import synthetic as jsyn
+from orb_slam3_detailed_comments_kor_tpu.slam.system import SlamSystem as JaxSlam
+from orb_slam3_detailed_comments_kor_tpu_torch.slam import frontend as tfe
+from orb_slam3_detailed_comments_kor_tpu_torch.slam import map_state as tms
+from orb_slam3_detailed_comments_kor_tpu_torch.slam.system import SlamSystem as TorchSlam
 
 N_FRAMES = chip_smoke.SMALL_LOOP_FRAMES
 # frames after the fixture's: four in localization mode (the first two
@@ -106,11 +103,7 @@ def loops():
     jax_system.enable_loop_closing = False
     torch_system = TorchSlam(cfg, device="cpu")
     torch_system.enable_loop_closing = False
-    # the two runs are independent: overlap them (each is deterministic)
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        j = pool.submit(run, jax_system, imgs)
-        t = pool.submit(run, torch_system, imgs)
-        return j.result(), t.result(), ts, cfg
+    return run(jax_system, imgs), run(torch_system, imgs), ts, cfg
 
 
 def test_same_keyframes_and_lifecycle(loops):

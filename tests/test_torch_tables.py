@@ -7,10 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-torch.set_num_threads(1)
-
-from orb_slam3_detailed_comments_kor_tpu.ops import orb as jorb  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.ops import orb as torb  # noqa: E402
+from orb_slam3_detailed_comments_kor_tpu.ops import orb as jorb
+from orb_slam3_detailed_comments_kor_tpu_torch.ops import orb as torb
 
 
 def test_orb_tables_equal():

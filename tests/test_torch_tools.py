@@ -28,8 +28,6 @@ import numpy as np
 import pytest
 import torch
 
-torch.set_num_threads(1)
-
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "tools"))
 

@@ -18,20 +18,18 @@ import numpy as np
 import pytest
 import torch
 
-torch.set_num_threads(1)
-
-import jax.numpy as jnp  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.io import synthetic as jsyn  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.models import vocabulary as jvoc  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.slam import loop_closing as jlc  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.slam import map_state as jms  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu.viz import viewer as jviewer  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.io import synthetic as tsyn  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.models import vocabulary as tvoc  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.slam import loop_closing as tlc  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.slam import map_state as tms  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.utils import lie as tlie  # noqa: E402
-from orb_slam3_detailed_comments_kor_tpu_torch.viz import viewer as tviewer  # noqa: E402
+import jax.numpy as jnp
+from orb_slam3_detailed_comments_kor_tpu.io import synthetic as jsyn
+from orb_slam3_detailed_comments_kor_tpu.models import vocabulary as jvoc
+from orb_slam3_detailed_comments_kor_tpu.slam import loop_closing as jlc
+from orb_slam3_detailed_comments_kor_tpu.slam import map_state as jms
+from orb_slam3_detailed_comments_kor_tpu.viz import viewer as jviewer
+from orb_slam3_detailed_comments_kor_tpu_torch.io import synthetic as tsyn
+from orb_slam3_detailed_comments_kor_tpu_torch.models import vocabulary as tvoc
+from orb_slam3_detailed_comments_kor_tpu_torch.slam import loop_closing as tlc
+from orb_slam3_detailed_comments_kor_tpu_torch.slam import map_state as tms
+from orb_slam3_detailed_comments_kor_tpu_torch.utils import lie as tlie
+from orb_slam3_detailed_comments_kor_tpu_torch.viz import viewer as tviewer
 
 
 def clustered(rng, n, n_clusters=20, flip=0.05):
